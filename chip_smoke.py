@@ -25,11 +25,16 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     live = 0 lanes (which must be exact zeros); B1a/B1b (flash
                     attention forward and backward, against the plain
                     version's autograd gradients; bf16 also gets one bf16
-                    step of the element, see flash_limit) at the
+                    step of the element, see flash_limit; the bf16 forward
+                    runs csrc/flash_forward_mma.cu on the tensor cores, with
+                    P in two bf16 terms where B1b reads its output and in
+                    one without gradients (held and timed too), the float32
+                    forward and B1b in both types csrc/flash_attention.cu) at the
                     flagship cross- and self-attention and the 30M
                     cross-attention (left-padded) shapes, pad keys' gradients
                     exact zeros; B5 (ring_block_forward, ring attention's
-                    fully visible blocks) at clm_8k's cross- and
+                    fully visible blocks: B1a's entry, in bf16 with P in two
+                    terms) at clm_8k's cross- and
                     self-attention blocks at {"seq": 4} and the flagship's
                     cross-attention block at {"seq": 2}, the float32 output
                     and log-sum-exp within 1e-4 in both input types, an
@@ -458,6 +463,16 @@ def check_flash_kernel():
                 if not (diff <= atol + rtol * y.float().abs()).all():
                     raise AssertionError(f"flash {name} {dtype} {key}: kernel vs plain max error {errs[key]} "
                                          f"(atol {atol}, rtol {rtol})")
+            if dtype == torch.bfloat16:  # a forward without gradients: P in one bf16 term
+                with torch.no_grad():
+                    one = fl.splash_mha(q, k, v, pad_mask=pad, causal=True).float()
+                atol, rtol = flash_limit(want, dtype)
+                diff = (one - want.float()).abs()
+                errs["o_one_term_p"], limits["o_one_term_p"] = diff.max().item(), (atol, rtol)
+                if not (diff <= atol + rtol * want.float().abs()).all():
+                    raise AssertionError(f"flash {name} {dtype} o (one-term P): kernel vs plain max error "
+                                         f"{errs['o_one_term_p']} (atol {atol}, rtol {rtol})")
+                del one, diff
             # the same gradients from the kernels' own arithmetic in plain PyTorch
             fa2 = fl._backward_plain(q, k, v, pad, True, *fl._forward_plain(q, k, v, pad, True), do)
             errs_fa2 = {key: (x.float() - y.float()).abs().max().item()
@@ -481,7 +496,7 @@ def check_flash_kernel():
                 return F.scaled_dot_product_attention(*ts, attn_mask=mask, scale=1.0)
 
             times = dict(
-                ms=time_ms(lambda: fl._launch_forward(q, k, v, pad, True)),
+                ms=time_ms(lambda: fl._launch_forward(q, k, v, pad, True)),  # bf16: P in two terms, as in training
                 backward_ms=time_ms(lambda: fl._launch_backward(q, k, v, pad, True, o, lse, do)),
                 forward_backward_ms=time_ms(both(lambda *ts: fl.splash_mha(*ts, pad_mask=pad, causal=True), leaves)),
                 plain_ms=time_ms(lambda: fl.flash_attention_reference(q, k, v, pad, True)),
@@ -492,6 +507,8 @@ def check_flash_kernel():
                 library_backward_ms=time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True)),
                 library_forward_backward_ms=time_ms(both(library, lib_leaves)),
             )
+            if dtype == torch.bfloat16:
+                times["one_term_p_ms"] = time_ms(lambda: fl._launch_forward(q, k, v, pad, True, split_p=False))
             bounds, pairs = flash_bounds(q, k, pad, torch.finfo(dtype).bits // 8)
             rec = dict(kernel="splash_mha", shape=name, dtype=str(dtype).removeprefix("torch."), batch=b, heads=h,
                        queries=nq, keys=nk, head_dim=d, visible_pairs=pairs, max_abs_err=errs, limits=limits,
@@ -1348,10 +1365,11 @@ def main() -> int:
             library_ms=head["library_ms"],
         ))
     head = next(r for r in flash_results if r["shape"] == "flagship_cross_attention" and r["dtype"] == "bfloat16")
-    for key, name, err_keys, prefix in (("B1a", "splash_mha_forward", ("o",), ""),
-                                        ("B1b", "splash_mha_backward", ("dq", "dk", "dv"), "backward_")):
+    for key, name, err_keys, prefix, source in (
+            ("B1a", "splash_mha_forward", ("o",), "", "flash_forward_mma.cu"),
+            ("B1b", "splash_mha_backward", ("dq", "dk", "dv"), "backward_", "flash_attention.cu")):
         kernels.append(dict(
-            name=name, route="cuda", source="perceiver_io_torch/csrc/flash_attention.cu",
+            name=name, route="cuda", source=f"perceiver_io_torch/csrc/{source}",
             replaces="perceiver_io_tpu/ops/flash.py:164", launches=launches[key],
             max_abs_err=max(r["max_abs_err"][e] for r in flash_results for e in err_keys),
             ms=head["ms" if not prefix else "backward_ms"], plain_ms=head[f"plain_{prefix}ms"],
@@ -1360,7 +1378,7 @@ def main() -> int:
         ))
     head = next(r for r in ring_results if r["shape"] == "clm_8k_cross_block" and r["dtype"] == "bfloat16")
     kernels.append(dict(
-        name="ring_block_forward", route="cuda", source="perceiver_io_torch/csrc/flash_attention.cu",
+        name="ring_block_forward", route="cuda", source="perceiver_io_torch/csrc/flash_forward_mma.cu",
         replaces="perceiver_io_tpu/parallel/ring_attention.py:102", launches=launches["B5"],
         max_abs_err=max(e for r in ring_results for e in r["max_abs_err"].values()), ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -1,6 +1,9 @@
-// Flash attention forward (B1a) and backward (B1b) for Hopper (sm_90a):
-// softmax(q k^T + mask) v over (B, H, N, D) heads without materialising the
-// (Nq, Nk) score matrix, and its gradients dq, dk, dv.
+// Flash attention forward (B1a, float32) and backward (B1b, float32 and
+// bfloat16) for Hopper (sm_90a): softmax(q k^T + mask) v over (B, H, N, D)
+// heads without materialising the (Nq, Nk) score matrix, and its gradients
+// dq, dk, dv. The bfloat16 forward (B1a and B5 for bf16 inputs) lives in
+// flash_forward_mma.cu, on the tensor cores; this file's forward entry
+// takes float32 only.
 //
 // Replaces perceiver_io_tpu/ops/flash.py:splash_mha (the Pallas splash kernel
 // built by `_build_kernel` via `make_splash_mha`, forward and backward under
@@ -23,18 +26,19 @@
 // Causal is right-aligned, as splash's CausalMask((Nq, Nk), offset=Nk-Nq):
 // query i sees key j iff j <= Nk - Nq + i. A query that sees no key gets an
 // output of exact zeros, lse = -inf and zero gradients (never NaN). Scores,
-// softmax statistics and every sum are float32; T is float32 or bfloat16.
+// softmax statistics and every sum are float32; T is float32 or bfloat16
+// (the forward: float32).
 //
 // What bounds it on an H100: each visible (query, key) pair costs 4*D flops
 // forward (scores and value sum) and 10*D backward, against O(D) bytes per
 // row read once. At the training shapes (D = 64-128, 512 queries over 512-
 // 2304 keys, causal) that puts the bf16 forward at the ~295 flop/byte ridge
 // (bytes and tensor-core flops give about the same floor) and the backward
-// and every float32 case above it, bound by operations. This first kernel
-// multiplies on the CUDA cores in float32 (no mma/wgmma yet), so it runs far
+// and every float32 case above it, bound by operations. These kernels
+// multiply on the CUDA cores in float32 (no mma/wgmma), so they run far
 // from either floor; the design keeps the score matrix out of device memory
 // and skips whole tiles that the mask hides:
-//   * forward: one block per (batch*head, 64-query tile), 256 threads; a loop
+//   * forward (float32): one block per (batch*head, 64-query tile), 256 threads; a loop
 //     over 64-key tiles held in shared memory with the online softmax (running
 //     max and sum per row in shared memory, the output tile in registers).
 //     Key tiles past the causal bound are never loaded; tiles whose keys are
@@ -48,8 +52,8 @@
 //   * every thread owns a 4 x 4 (or 4 x D/16) register tile of each product,
 //     rows ty + 16 i and columns tx + 16 j; shared tiles are padded to an odd
 //     row stride so a warp's column reads hit distinct banks.
-// Next steps (later work): bf16 tensor-core products (mma.sync, then wgmma
-// with TMA loads), 128-row tiles, and keeping P in registers.
+// Next steps (later work): the backward on bf16 tensor-core products, as the
+// bf16 forward in flash_forward_mma.cu already is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -495,21 +499,19 @@ bool valid_args(int B, int H, int Nq, int Nk, int D, int dtype) {
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype (of q, k, v, dout and the
-// gradients): 0 = float32, 1 = bfloat16; o and lse are float32; D: 64 or
+// gradients): 0 = float32, 1 = bfloat16 (the backward only; the bf16 forward
+// is flash_forward_mma.cu's); o and lse are float32; D: 64 or
 // 128; pad: (B, Nk) uint8 or null. The Python wrapper checks every
 // pointer, shape and type and allocates every output and scratch buffer.
 // Each returns cudaGetLastError() after its launches (0 = launched).
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, const void* pad, void* o,
                                        void* lse, int B, int H, int Nq, int Nk, int D, int causal, int dtype,
                                        void* stream) {
-  if (!valid_args(B, H, Nq, Nk, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (!valid_args(B, H, Nq, Nk, D, dtype) || dtype != 0) return (int)cudaErrorInvalidValue;
   (void)cudaGetLastError();  // clear a stale error so the one returned is this launch's
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return D == 64 ? forward<float, 64>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s)
-                   : forward<float, 128>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-  return D == 64 ? forward<__nv_bfloat16, 64>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s)
-                 : forward<__nv_bfloat16, 128>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
+  return D == 64 ? forward<float, 64>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s)
+                 : forward<float, 128>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
 }
 
 // delta: (B, H, Nq) float32 scratch; dq, dk, dv in the inputs' dtype.

@@ -29,6 +29,8 @@ NVCC_FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# ptxas -v lines kept in build()'s report: the kernel's name, its registers, its spills
+_PTXAS_WORDS = ("Compiling entry function", "Used", "spill")
 
 
 def sources() -> List[str]:
@@ -54,7 +56,7 @@ def build(names: Optional[List[str]] = None) -> Dict[str, dict]:
     not built yet, one ``nvcc`` each, all started together. Raises with the
     compiler's output if one fails. Returns, per source, ``{"seconds": wall
     seconds of its nvcc or None when it was already built, "ptxas": the
-    compiler's register/spill lines}``."""
+    compiler's lines naming each kernel, its registers and its spills}``."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
@@ -76,7 +78,8 @@ def build(names: Optional[List[str]] = None) -> Dict[str, dict]:
             failed.append(f"{name}.cu: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, target)
-        report[name] = {"seconds": seconds, "ptxas": [line for line in log.splitlines() if "Used" in line]}
+        report[name] = {"seconds": seconds, "ptxas": [line.strip() for line in log.splitlines()
+                                                      if any(w in line for w in _PTXAS_WORDS)]}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return report

@@ -3,9 +3,12 @@ materialised score matrix, forward and backward.
 
 Port of ``perceiver_io_tpu/ops/flash.py`` (``flash_supported`` and
 ``splash_mha``). On a CUDA tensor ``splash_mha`` launches the hand-written
-Hopper kernels (``perceiver_io_torch/csrc/flash_attention.cu``: B1a forward,
-B1b backward, whose header says what bounds them) through a
-``torch.autograd.Function``, or raises; on a CPU tensor the same Function
+Hopper kernels through a ``torch.autograd.Function``, or raises: B1a, the
+forward, is ``perceiver_io_torch/csrc/flash_forward_mma.cu`` for bfloat16
+(tensor-core ``mma.sync`` tiles) and ``csrc/flash_attention.cu`` for float32
+(the tensor cores have no float32 product); B1b, the backward, is
+``csrc/flash_attention.cu`` for both (each file's header says what bounds
+its kernels). On a CPU tensor the same Function
 computes the kernels' arithmetic in plain PyTorch (``_forward_plain``,
 ``_backward_plain``). ``flash_attention_reference`` is the plain version
 written with autograd-native ops: the CUDA kernels and the CPU route are held
@@ -15,9 +18,13 @@ against it and its autograd gradients. There is no other fallback.
 ``perceiver_io_tpu/parallel/ring_attention.py:_splash_fwd_block``: one fully
 visible block of ring attention, which the TPU runs as the same splash kernel
 with ``save_residuals=True`` (its log-sum-exp) and no causal mask. Its CUDA
-counterpart is therefore B1a's own entry (``flash_attention_forward`` with
-``causal = 0``), which writes the float32 output and log-sum-exp; no other
-source is needed. It has no autograd, as JAX's AD never sees the TPU kernel:
+counterpart is therefore B1a's own entry with no causal mask, which writes
+the float32 output and log-sum-exp; in bfloat16 it asks that kernel for P
+as two bf16 terms (``split_p``), so the float32 output holds 1e-4, where
+one term would move it by up to ~8e-4. B1a asks for two terms too whenever
+its output will be differentiated (B1b reads the float32 output), and for
+one when it is only cast to bf16 (a forward without gradients). It has no
+autograd, as JAX's AD never sees the TPU kernel:
 the ring's custom backward recomputes the block. It counts its launches in
 ``block_launches``, apart from the training path's B1a.
 
@@ -172,7 +179,9 @@ class _FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = _forward_plain(q, k, v, pad_mask, causal)
         else:
-            o, lse = _launch_forward(q, k, v, pad_mask, causal)
+            # the backward's delta = rowsum(dO * O) reads the float32 O, and
+            # with P rounded to bf16 once it moves bf16 dq past B1's limit
+            o, lse = _launch_forward(q, k, v, pad_mask, causal, split_p=any(ctx.needs_input_grad[:3]))
         ctx.save_for_backward(q, k, v, o, lse, pad_mask)
         ctx.causal = causal
         return o.to(q.dtype)
@@ -190,6 +199,7 @@ class _FlashAttention(torch.autograd.Function):
 # ------------------------------------------------------------------ CUDA
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns = None
+_mma_fn = None
 
 
 def _entries():
@@ -209,6 +219,22 @@ def _entries():
         fwd.restype = bwd.restype = i
         _fns = (fwd, bwd)
     return _fns
+
+
+def _mma_entry():
+    """The bfloat16 forward's C entry point (``csrc/flash_forward_mma.cu``),
+    built and loaded at first use (never at import)."""
+    global _mma_fn
+    if _mma_fn is None:
+        from perceiver_io_torch.ops.cuda_build import library
+
+        fn = library("flash_forward_mma").flash_forward_mma
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # q k v pad o lse B H Nq Nk D causal split_p stream
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = i
+        _mma_fn = fn
+    return _mma_fn
 
 
 def _check_cuda(tensors: dict, q: torch.Tensor) -> None:
@@ -234,28 +260,40 @@ def _pad_bytes(pad_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return pad_mask.contiguous().view(torch.uint8)
 
 
-def _forward_entry(q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+def _forward_entry(q, k, v, pad_mask, causal, split_p) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on the current stream, or raise: (o, lse),
-    both float32. Counts nothing: its callers do."""
+    both float32. bfloat16 inputs take the tensor-core kernel
+    (``flash_forward_mma``; ``split_p``: P as two bf16 terms), float32 ones
+    ``flash_attention_forward``. Counts nothing: its callers do."""
     pad = _pad_bytes(pad_mask)
     _check_cuda({"q": q, "k": k, "v": v, "pad_mask": pad}, q)
     b, h, n_q, d = q.shape
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty(b, h, n_q, dtype=torch.float32, device=q.device)
-    err = _entries()[0](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pad is None else pad.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, h, n_q, k.shape[2], d, int(causal), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pad_ptr = None if pad is None else pad.data_ptr()
+    if q.dtype == torch.bfloat16:
+        for t_name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
+                raise ValueError(f"the bf16 flash forward needs 16-byte aligned tensors; {t_name} is not")
+        name = "flash_forward_mma"
+        err = _mma_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, o.data_ptr(), lse.data_ptr(), b, h,
+                           n_q, k.shape[2], d, int(causal), int(split_p), stream)
+    else:
+        name = "flash_attention_forward"
+        err = _entries()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, o.data_ptr(), lse.data_ptr(), b, h,
+                            n_q, k.shape[2], d, int(causal), _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return o, lse
 
 
-def _launch_forward(q, k, v, pad_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B1a on the current stream, or raise: (o, lse), both float32."""
+def _launch_forward(q, k, v, pad_mask, causal, split_p=True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch B1a on the current stream, or raise: (o, lse), both float32.
+    ``split_p``: in bfloat16, P as two bf16 terms (needed when B1b will read
+    o); one term is enough for an output that is only cast to bf16."""
     global forward_launches
-    out = _forward_entry(q, k, v, pad_mask, causal)
+    out = _forward_entry(q, k, v, pad_mask, causal, split_p)
     forward_launches += 1
     return out
 
@@ -267,13 +305,14 @@ def ring_block_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     padding. Returns (o, lse): the normalised output (B, H, Nq, D) and the
     log-sum-exp (B, H, Nq), float32 (float64 for float64 inputs), with
     exact zeros and -inf for a query whose keys are all padding. CUDA
-    tensors launch B1a's entry with no causal mask (contiguous inputs, or it
-    raises); CPU tensors take its plain version."""
+    tensors launch B1a's entry with no causal mask and, in bfloat16, P as
+    two bf16 terms (contiguous inputs, or it raises); CPU tensors take its
+    plain version."""
     global block_launches
     _check(q, k, v, pad_mask)
     if q.device.type == "cpu":
         return _forward_plain(q, k, v, pad_mask, False)
-    out = _forward_entry(q, k, v, pad_mask, False)
+    out = _forward_entry(q, k, v, pad_mask, False, split_p=True)
     block_launches += 1
     return out
 

@@ -214,30 +214,32 @@ def _flash_limit(want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,nq,nk,d,pads", [
-    (2, 3, 70, 150, 64, [0, 90]),              # ragged tails, a padding-only key tile
-    (2, 2, 100, 60, 128, [0, 10]),             # Nk < Nq: the first queries see no key
-    (2, 10, 512, 1024, 128, [0, 300]),         # the flagship cross-attention's shape
-    (2, 8, 512, 2304, 64, [0, 1790]),          # the 30M cross-attention after the gather
-], ids=["ragged", "short_keys", "flagship", "clm_30m"])
-def test_flash_kernels_match_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pads):
-    """B1a and B1b (causal, left-padded keys) against the plain version and
-    its autograd gradients; pad keys get exact-zero dK and dV, queries that
-    see no key exact-zero outputs."""
+@pytest.mark.parametrize("b,h,nq,nk,d,pads,causal", [
+    (2, 3, 70, 150, 64, [0, 90], True),          # ragged tails, a padding-only key tile
+    (2, 2, 100, 60, 128, [0, 10], True),         # Nk < Nq: the first queries see no key
+    (2, 10, 512, 1024, 128, [0, 300], True),     # the flagship cross-attention's shape
+    (2, 8, 512, 2304, 64, [0, 1790], True),      # the 30M cross-attention after the gather
+    (2, 3, 200, 330, 128, [0, 40], True),        # Nq not a multiple of 128, Nk not of 64
+    (2, 4, 200, 330, 64, [0, 100], False),       # no causal mask
+], ids=["ragged", "short_keys", "flagship", "clm_30m", "ragged_128", "not_causal"])
+def test_flash_kernels_match_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pads, causal):
+    """B1a and B1b (left-padded keys) against the plain version and its
+    autograd gradients; pad keys get exact-zero dK and dV, queries that see
+    no key exact-zero outputs."""
     g = torch.Generator(card).manual_seed(nq)
     q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).to(dtype)
     k, v = (torch.randn(b, h, nk, d, generator=g, device=card).to(dtype) for _ in range(2))
     do = torch.randn(b, h, nq, d, generator=g, device=card).to(dtype)
     pad = torch.arange(nk, device=card)[None, :] < torch.tensor(pads, device=card)[:, None]
     ref = [t.clone().requires_grad_() for t in (q, k, v)]
-    want = fl.flash_attention_reference(*ref, pad_mask=pad, causal=True)
+    want = fl.flash_attention_reference(*ref, pad_mask=pad, causal=causal)
     want_grads = torch.autograd.grad(want, ref, do)
 
     monkeypatch.setattr(fl, "_forward_plain", None)  # the CUDA path must not need them
     monkeypatch.setattr(fl, "_backward_plain", None)
     before = (fl.forward_launches, fl.backward_launches)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    got = fl.splash_mha(*leaves, pad_mask=pad, causal=True)
+    got = fl.splash_mha(*leaves, pad_mask=pad, causal=causal)
     got_grads = torch.autograd.grad(got, leaves, do)
     torch.cuda.synchronize()
     assert (fl.forward_launches, fl.backward_launches) == (before[0] + 1, before[1] + 1)
@@ -245,9 +247,41 @@ def test_flash_kernels_match_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pa
         torch.testing.assert_close(x.float(), y.float(), **_flash_limit(y, dtype))
     at = pad[:, None, :, None].expand_as(got_grads[1])
     assert (got_grads[1][at] == 0).all() and (got_grads[2][at] == 0).all()
-    blind = nk - nq + torch.arange(nq, device=card) < pad.sum(1, keepdim=True)  # (b, nq): every visible key is a pad
+    last_key = nk - nq + torch.arange(nq, device=card) if causal else torch.full((nq,), nk - 1, device=card)
+    blind = last_key < pad.sum(1, keepdim=True)  # (b, nq): every visible key is a pad
     if blind.any():
         assert (got.transpose(1, 2)[blind] == 0).all() and (got_grads[0].transpose(1, 2)[blind] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "mma"), (torch.float32, "fp32")])
+def test_flash_forward_route(card, monkeypatch, dtype, entry):
+    """bfloat16 reaches the tensor-core forward (flash_forward_mma.cu), with P
+    in two bf16 terms for B5 and for a B1a whose output will be
+    differentiated (B1b reads it), one for a B1a without gradients; float32
+    reaches flash_attention.cu's forward. Each call adds one to its own
+    counter."""
+    calls = []
+    mma, entries = fl._mma_entry(), fl._entries()
+
+    def spy_mma(*args):
+        calls.append(("mma", args[12]))  # split_p
+        return mma(*args)
+
+    def spy_fp32(*args):
+        calls.append(("fp32", None))
+        return entries[0](*args)
+
+    monkeypatch.setattr(fl, "_mma_entry", lambda: spy_mma)
+    monkeypatch.setattr(fl, "_entries", lambda: (spy_fp32, entries[1]))
+    q = torch.randn(1, 2, 128, 64, device=card).to(dtype)
+    leaf = q.clone().requires_grad_()
+    before = (fl.forward_launches, fl.block_launches)
+    fl.splash_mha(q, q, q, causal=True)
+    fl.splash_mha(leaf, q, q, causal=True)
+    fl.ring_block_forward(q, q, q, None)
+    torch.cuda.synchronize()
+    assert (fl.forward_launches, fl.block_launches) == (before[0] + 2, before[1] + 1)
+    assert calls == ([("mma", 0), ("mma", 1), ("mma", 1)] if entry == "mma" else [("fp32", None)] * 3)
 
 
 def test_flash_rejects_what_it_does_not_take(card):
@@ -259,6 +293,9 @@ def test_flash_rejects_what_it_does_not_take(card):
     strided = torch.zeros(1, 128, 2, 64, device=card).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fl.splash_mha(strided, q, q)
+    shifted = torch.zeros(2 * 128 * 64 + 1, device=card, dtype=torch.bfloat16)[1:].view(1, 2, 128, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.splash_mha(shifted, q.bfloat16(), q.bfloat16())
 
 
 def test_flagship_width_train_step_on_the_card(card):
@@ -282,7 +319,8 @@ def test_flagship_width_train_step_on_the_card(card):
 @pytest.mark.parametrize("b,h,nq,nk,d,pads", [
     (3, 2, 70, 150, 64, [0, 150, 90]),          # ragged tiles; row 1's block is all padding
     (4, 8, 256, 1152, 64, [0, 300, 1152, 17]),  # clm_8k's cross-attention block at {"seq": 4}
-], ids=["ragged_all_pad_row", "clm_8k_cross_block"])
+    (16, 10, 256, 512, 128, None),              # the flagship's cross-attention block at {"seq": 2}
+], ids=["ragged_all_pad_row", "clm_8k_cross_block", "flagship_seq2_block"])
 def test_ring_block_kernel_matches_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pads):
     """B5 (B1a's entry, no causal mask) against its plain version: the
     float32 output and log-sum-exp within 1e-4 for both input types, as
@@ -292,14 +330,14 @@ def test_ring_block_kernel_matches_plain(card, monkeypatch, dtype, b, h, nq, nk,
     g = torch.Generator(card).manual_seed(nk)
     q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).to(dtype)
     k, v = (torch.randn(b, h, nk, d, generator=g, device=card).to(dtype) for _ in range(2))
-    pad = torch.arange(nk, device=card)[None, :] < torch.tensor(pads, device=card)[:, None]
+    pad = None if pads is None else torch.arange(nk, device=card)[None, :] < torch.tensor(pads, device=card)[:, None]
     want_o, want_lse = fl._forward_plain(q, k, v, pad, False)
     monkeypatch.setattr(fl, "_forward_plain", None)  # the CUDA path must not need it
     before = fl.block_launches
     o, lse = fl.ring_block_forward(q, k, v, pad)
     torch.cuda.synchronize()
     assert fl.block_launches == before + 1 and o.dtype == lse.dtype == torch.float32
-    blind = pad.all(1)
+    blind = torch.zeros(b, dtype=torch.bool, device=card) if pad is None else pad.all(1)
     assert (o[blind] == 0).all() and torch.isneginf(lse[blind]).all()
     torch.testing.assert_close(o, want_o, atol=1e-4, rtol=0.0)
     torch.testing.assert_close(lse[~blind], want_lse[~blind], atol=1e-4, rtol=0.0)

@@ -1,7 +1,9 @@
 """Port parity: perceiver_io_torch.ops.flash (the plain version of kernels
 B1a/B1b and the autograd Function's CPU route) against the JAX package's
 ``splash_mha`` in Pallas interpret mode, at tests/test_flash.py's shapes
-(B=1, H=2, D=64, 128 queries x 256 keys), in float32.
+(B=1, H=2, D=64, 128 queries x 256 keys), in float32; and the bf16 CUDA
+forward's rounding of P, emulated in plain PyTorch, against the plain
+version's limits.
 
 Tolerances: the forward within atol 2e-5, as the JAX package's own tests
 hold splash against its XLA formulation; dq, dk and dv against ``jax.grad``
@@ -131,6 +133,68 @@ def test_a_query_that_sees_no_key_gets_zeros():
         assert torch.isfinite(dq).all() and dq[0].abs().sum() > 0
     _, lse = fl._forward_plain(q, k, v, pad, True)
     assert torch.isneginf(lse[1]).all() and torch.isfinite(lse[0]).all()
+
+
+def _bf16_kernel_arithmetic(q, k, v, pad, causal, split_p, tile=64):
+    """The bf16 forward's arithmetic (csrc/flash_forward_mma.cu) in plain
+    float32 PyTorch: 64-key tiles, the online softmax, P rounded to bf16 in
+    one term or split into two (hi + lo) before the P V product, and the sum
+    l of the unrounded p. Returns (o, lse) in float32."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    b, h, nq, d = q.shape
+    visible = fl._visibility(nq, k.shape[2], pad, causal, q.device)
+    m = torch.full((b, h, nq), float("-inf"))
+    l, acc = torch.zeros(b, h, nq), torch.zeros(b, h, nq, d)
+    for k0 in range(0, k.shape[2], tile):
+        vt = vf[:, :, k0:k0 + tile]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + tile])
+        s = s.masked_fill(~visible[..., k0:k0 + tile], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        alpha, p = torch.exp(m - m_use), torch.exp(s - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc, m = acc * alpha[..., None] + pv, m_new
+    o = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    return o, torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
+
+
+def test_rounding_budget_of_the_bf16_forward():
+    """Why the bf16 kernel's P may be split into two bf16 terms (kSplitP),
+    at a narrow ring-block shape (2, 2, 128 x 320, D 64, one row's keys
+    left-padded): with one term the output, cast to bf16, stays within B1's
+    bf16 limit (0.03 x RMS + one bf16 step), but the float32 output moves by
+    more than B5's 1e-4; with two terms the output and lse stay within 1e-4.
+    The same split keeps B1b's dq (whose delta = rowsum(dO * O) reads the
+    float32 output) far closer to autograd's than one term does, so B1a
+    splits P whenever its output will be differentiated."""
+    rs = np.random.RandomState(0)
+    b, h, nq, nk, d = 2, 2, 128, 320, 64
+    q = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32) * d**-0.5).bfloat16()
+    k, v = (torch.from_numpy(rs.randn(b, h, nk, d).astype(np.float32)).bfloat16() for _ in range(2))
+    do = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32)).bfloat16()
+    pad = torch.arange(nk)[None, :] < torch.tensor([0, 70])[:, None]
+    want_o, want_lse = fl._forward_plain(q, k, v, pad, False)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_dq = torch.autograd.grad(fl.flash_attention_reference(*leaves, pad_mask=pad), leaves, do)[0].float()
+
+    def b1_limit(y):
+        return 0.03 * y.pow(2).mean().sqrt() + 2.0**-7 * y.abs()
+
+    one_o, one_lse = _bf16_kernel_arithmetic(q, k, v, pad, False, split_p=False)
+    two_o, two_lse = _bf16_kernel_arithmetic(q, k, v, pad, False, split_p=True)
+    assert ((one_o.bfloat16().float() - want_o).abs() <= b1_limit(want_o)).all()
+    assert (one_o - want_o).abs().max() > 1e-4
+    torch.testing.assert_close(two_o, want_o, atol=1e-4, rtol=0)
+    torch.testing.assert_close(two_lse, want_lse, atol=1e-4, rtol=0)
+    dq = {}
+    for split_p, o, lse in ((False, one_o, one_lse), (True, two_o, two_lse)):
+        dq[split_p] = fl._backward_plain(q, k, v, pad, False, o, lse, do)[0].float()
+        assert ((dq[split_p] - want_dq).abs() <= b1_limit(want_dq)).all()
+    assert (dq[True] - want_dq).abs().max() * 4 <= (dq[False] - want_dq).abs().max()
 
 
 def test_wrapper_checks_shapes():
