@@ -25,16 +25,18 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     live = 0 lanes (which must be exact zeros); B1a/B1b (flash
                     attention forward and backward, against the plain
                     version's autograd gradients; bf16 also gets one bf16
-                    step of the element, see flash_limit; the bf16 forward
-                    runs csrc/flash_forward_mma.cu on the tensor cores, with
-                    P in two bf16 terms where B1b reads its output and in
-                    one without gradients (held and timed too), the float32
-                    forward and B1b in both types csrc/flash_attention.cu) at the
+                    step of the element, see flash_limit; in bf16 the
+                    forward runs csrc/flash_forward_mma.cu and B1b
+                    csrc/flash_backward_mma.cu on the tensor cores, with P
+                    in two bf16 terms where B1b reads the forward's output
+                    and in one without gradients (held and timed too); in
+                    float32 both run csrc/flash_attention.cu) at the
                     flagship cross- and self-attention and the 30M
                     cross-attention (left-padded) shapes, pad keys' gradients
-                    exact zeros; B5 (ring_block_forward, ring attention's
-                    fully visible blocks: B1a's entry, in bf16 with P in two
-                    terms) at clm_8k's cross- and
+                    exact zeros, two backward runs bit-identical; B5
+                    (ring_block_forward, ring attention's fully visible
+                    blocks: B1a's entry, in bf16 with P in two terms) at
+                    clm_8k's cross- and
                     self-attention blocks at {"seq": 4} and the flagship's
                     cross-attention block at {"seq": 2}, the float32 output
                     and log-sum-exp within 1e-4 in both input types, an
@@ -438,7 +440,8 @@ def flash_bounds(q, k, pad, esize):
 def check_flash_kernel():
     """B1a (forward) and B1b (backward) against the plain version and its
     autograd gradients at the training path's shapes, causal, in float32 and
-    bfloat16; pad keys' dK and dV must be exact zeros. Times per call: the
+    bfloat16; pad keys' dK and dV must be exact zeros, and two backward runs
+    on the same inputs the same bits (no atomics). Times per call: the
     forward, the backward alone (from a saved forward) and both, for the
     kernel, the plain version and F.scaled_dot_product_attention with the
     same boolean mask (a yardstick, used nowhere in the port)."""
@@ -485,6 +488,10 @@ def check_flash_kernel():
 
             # saved forward for the backward-alone timings
             o, lse = fl._launch_forward(q, k, v, pad, True)
+            first, second = (fl._launch_backward(q, k, v, pad, True, o, lse, do) for _ in range(2))
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                raise AssertionError(f"flash {name} {dtype}: two backward runs on the same inputs differ")
+            del first, second
             mask = fl._visibility(nq, nk, pad, True, q.device).contiguous()
             lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask, scale=1.0)
@@ -512,7 +519,7 @@ def check_flash_kernel():
             bounds, pairs = flash_bounds(q, k, pad, torch.finfo(dtype).bits // 8)
             rec = dict(kernel="splash_mha", shape=name, dtype=str(dtype).removeprefix("torch."), batch=b, heads=h,
                        queries=nq, keys=nk, head_dim=d, visible_pairs=pairs, max_abs_err=errs, limits=limits,
-                       grad_err_vs_plain_fa2_arithmetic=errs_fa2,
+                       grad_err_vs_plain_fa2_arithmetic=errs_fa2, backward_bit_identical=True,
                        bound_ms=bounds["forward"][0], bound_by=bounds["forward"][1],
                        backward_bound_ms=bounds["backward"][0], backward_bound_by=bounds["backward"][1], **times)
             emit(phase="kernel_check", **rec)
@@ -1367,7 +1374,7 @@ def main() -> int:
     head = next(r for r in flash_results if r["shape"] == "flagship_cross_attention" and r["dtype"] == "bfloat16")
     for key, name, err_keys, prefix, source in (
             ("B1a", "splash_mha_forward", ("o",), "", "flash_forward_mma.cu"),
-            ("B1b", "splash_mha_backward", ("dq", "dk", "dv"), "backward_", "flash_attention.cu")):
+            ("B1b", "splash_mha_backward", ("dq", "dk", "dv"), "backward_", "flash_backward_mma.cu")):
         kernels.append(dict(
             name=name, route="cuda", source=f"perceiver_io_torch/csrc/{source}",
             replaces="perceiver_io_tpu/ops/flash.py:164", launches=launches[key],

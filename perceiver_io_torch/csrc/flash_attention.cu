@@ -1,9 +1,9 @@
-// Flash attention forward (B1a, float32) and backward (B1b, float32 and
-// bfloat16) for Hopper (sm_90a): softmax(q k^T + mask) v over (B, H, N, D)
-// heads without materialising the (Nq, Nk) score matrix, and its gradients
-// dq, dk, dv. The bfloat16 forward (B1a and B5 for bf16 inputs) lives in
-// flash_forward_mma.cu, on the tensor cores; this file's forward entry
-// takes float32 only.
+// Flash attention forward (B1a) and backward (B1b) in float32 for Hopper
+// (sm_90a): softmax(q k^T + mask) v over (B, H, N, D) heads without
+// materialising the (Nq, Nk) score matrix, and its gradients dq, dk, dv.
+// Float32 only: the tensor cores have no float32 product. bfloat16 inputs
+// take flash_forward_mma.cu (forward) and flash_backward_mma.cu (backward),
+// on the tensor cores.
 //
 // Replaces perceiver_io_tpu/ops/flash.py:splash_mha (the Pallas splash kernel
 // built by `_build_kernel` via `make_splash_mha`, forward and backward under
@@ -14,31 +14,22 @@
 // ring merges each block's float32 output through its lse. A ring block's key
 // count need not be a multiple of 64 (ragged last tile) and may be all padding
 // (o = 0, lse = -inf). Same function, same layouts:
-//   q     (B, H, Nq, D)  already scaled and rotated queries, dtype T
-//   k, v  (B, H, Nk, D)  keys and values, dtype T
+//   q     (B, H, Nq, D)  already scaled and rotated queries, float32
+//   k, v  (B, H, Nk, D)  keys and values, float32
 //   pad   (B, Nk)        uint8, 1 = padding key (the splash segment id 0), or null
-//   o     (B, H, Nq, D)  float32: the wrapper returns it cast to T and keeps it
-//                        for the backward, whose delta = rowsum(dO * O) then
-//                        sees the unrounded output (the TPU kernel takes it from
-//                        the rounded one; in bf16 that moves a gradient by up
-//                        to a few bf16 steps of its largest elements)
+//   o     (B, H, Nq, D)  float32, kept for the backward's delta = rowsum(dO * O)
 //   lse   (B, H, Nq)     float32 log-sum-exp of each query's visible scores
 // Causal is right-aligned, as splash's CausalMask((Nq, Nk), offset=Nk-Nq):
 // query i sees key j iff j <= Nk - Nq + i. A query that sees no key gets an
-// output of exact zeros, lse = -inf and zero gradients (never NaN). Scores,
-// softmax statistics and every sum are float32; T is float32 or bfloat16
-// (the forward: float32).
+// output of exact zeros, lse = -inf and zero gradients (never NaN).
 //
 // What bounds it on an H100: each visible (query, key) pair costs 4*D flops
 // forward (scores and value sum) and 10*D backward, against O(D) bytes per
-// row read once. At the training shapes (D = 64-128, 512 queries over 512-
-// 2304 keys, causal) that puts the bf16 forward at the ~295 flop/byte ridge
-// (bytes and tensor-core flops give about the same floor) and the backward
-// and every float32 case above it, bound by operations. These kernels
-// multiply on the CUDA cores in float32 (no mma/wgmma), so they run far
-// from either floor; the design keeps the score matrix out of device memory
-// and skips whole tiles that the mask hides:
-//   * forward (float32): one block per (batch*head, 64-query tile), 256 threads; a loop
+// row read once: in float32 the operations, at the training shapes (D =
+// 64-128, 512 queries over 512-2304 keys, causal). These kernels multiply on
+// the CUDA cores (67 TFLOP/s), so the design keeps the score matrix out of
+// device memory and skips whole tiles that the mask hides:
+//   * forward: one block per (batch*head, 64-query tile), 256 threads; a loop
 //     over 64-key tiles held in shared memory with the online softmax (running
 //     max and sum per row in shared memory, the output tile in registers).
 //     Key tiles past the causal bound are never loaded; tiles whose keys are
@@ -52,10 +43,7 @@
 //   * every thread owns a 4 x 4 (or 4 x D/16) register tile of each product,
 //     rows ty + 16 i and columns tx + 16 j; shared tiles are padded to an odd
 //     row stride so a warp's column reads hit distinct banks.
-// Next steps (later work): the backward on bf16 tensor-core products, as the
-// bf16 forward in flash_forward_mma.cu already is.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -67,18 +55,13 @@ constexpr int kBK = 64;          // key rows per tile
 constexpr int kThreads = 256;    // 16 x 16 threads: (ty, tx) = (tid / 16, tid % 16)
 constexpr int kLdP = kBK + 1;    // row stride of the (64, 64) score / probability tiles
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 // Rows [0, valid) of a row-major (rows, D) slice into a (kRows, D + 1) float
 // tile; rows past `valid` are zeros.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int valid) {
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int valid) {
   for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
-    dst[r * (D + 1) + c] = r < valid ? to_f(src[(size_t)r * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = r < valid ? src[(size_t)r * D + c] : 0.f;
   }
 }
 
@@ -151,9 +134,9 @@ __device__ __forceinline__ int key_end(int q0, int Nq, int Nk, int causal) {
 }
 
 // ----------------------------------------------------------------- B1a
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const uint8_t* __restrict__ pad, float* __restrict__ o, float* __restrict__ lse,
     int H, int Nq, int Nk, int causal) {
   extern __shared__ float smem[];
@@ -171,11 +154,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int q0 = blockIdx.y * kBQ;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int off = Nk - Nq;
-  const T* kb = k + (size_t)bh * Nk * D;
-  const T* vb = v + (size_t)bh * Nk * D;
+  const float* kb = k + (size_t)bh * Nk * D;
+  const float* vb = v + (size_t)bh * Nk * D;
   const uint8_t* pad_row = pad ? pad + (size_t)b * Nk : nullptr;
 
-  load_tile<T, D, kBQ>(sQ, q + ((size_t)bh * Nq + q0) * D, Nq - q0);
+  load_tile<D, kBQ>(sQ, q + ((size_t)bh * Nq + q0) * D, Nq - q0);
   if (tid < kBQ) {
     sM[tid] = -INFINITY;
     sL[tid] = 0.f;
@@ -190,8 +173,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     const int kv = min(kBK, Nk - k0);
-    load_tile<T, D, kBK>(sK, kb + (size_t)k0 * D, kv);
-    load_tile<T, D, kBK>(sV, vb + (size_t)k0 * D, kv);
+    load_tile<D, kBK>(sK, kb + (size_t)k0 * D, kv);
+    load_tile<D, kBK>(sV, vb + (size_t)k0 * D, kv);
     if (!mark_keys(sOk, pad_row, k0, kv)) continue;  // padding only: nothing to see
 
     float s[4][4];
@@ -258,17 +241,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 // ----------------------------------------------------------------- B1b
 // delta[row] = sum_d dO[row, d] * O[row, d] (O in float32) for 64 rows a block; 4 threads a row.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(
-    const float* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta, int rows) {
+    const float* __restrict__ o, const float* __restrict__ dout, float* __restrict__ delta, int rows) {
   __shared__ float part[kThreads];
   const int tid = threadIdx.x;
   const int row = blockIdx.x * (kThreads / 4) + tid / 4;
   float s = 0.f;
   if (row < rows) {
     const float* orow = o + (size_t)row * D;
-    const T* drow = dout + (size_t)row * D;
-    for (int c = tid % 4; c < D; c += 4) s = fmaf(to_f(orow[c]), to_f(drow[c]), s);
+    const float* drow = dout + (size_t)row * D;
+    for (int c = tid % 4; c < D; c += 4) s = fmaf(orow[c], drow[c], s);
   }
   part[tid] = s;
   __syncthreads();
@@ -316,11 +299,11 @@ __device__ __forceinline__ void load_row_stats(float* sLse, float* sDelta, const
 }
 
 // dK, dV for one 64-key tile over every query tile that can see it.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ pad, const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H, int Nq, int Nk,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ pad, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int H, int Nq, int Nk,
     int causal) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
@@ -339,8 +322,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int off = Nk - Nq;
   const int kv = min(kBK, Nk - k0);
-  load_tile<T, D, kBK>(sK, k + ((size_t)bh * Nk + k0) * D, kv);
-  load_tile<T, D, kBK>(sV, v + ((size_t)bh * Nk + k0) * D, kv);
+  load_tile<D, kBK>(sK, k + ((size_t)bh * Nk + k0) * D, kv);
+  load_tile<D, kBK>(sV, v + ((size_t)bh * Nk + k0) * D, kv);
   const int any = mark_keys(sOk, pad ? pad + (size_t)b * Nk : nullptr, k0, kv);
 
   float dk_acc[4][D / 16], dv_acc[4][D / 16];
@@ -355,8 +338,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     for (int q0 = q_begin; q0 < Nq; q0 += kBQ) {
       __syncthreads();  // the previous tile's readers are done
       const int nq = min(kBQ, Nq - q0);
-      load_tile<T, D, kBQ>(sQ, q + ((size_t)bh * Nq + q0) * D, nq);
-      load_tile<T, D, kBQ>(sdO, dout + ((size_t)bh * Nq + q0) * D, nq);
+      load_tile<D, kBQ>(sQ, q + ((size_t)bh * Nq + q0) * D, nq);
+      load_tile<D, kBQ>(sdO, dout + ((size_t)bh * Nq + q0) * D, nq);
       load_row_stats(sLse, sDelta, lse, delta, (size_t)bh * Nq + q0, nq);
       __syncthreads();
       recompute_p_ds<D>(sQ, sK, sdO, sV, sLse, sDelta, sOk, sP, sdS, q0, k0, Nq, off, causal, ty, tx);
@@ -373,18 +356,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const size_t at = ((size_t)bh * Nk + k0 + r) * D;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      store(dk + at + tx + 16 * j, dk_acc[i][j]);
-      store(dv + at + tx + 16 * j, dv_acc[i][j]);
+      dk[at + tx + 16 * j] = dk_acc[i][j];
+      dv[at + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
 // dQ for one 64-query tile over the key tiles it can see.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const uint8_t* __restrict__ pad, const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dq, int H, int Nq, int Nk, int causal) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint8_t* __restrict__ pad, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int H, int Nq, int Nk, int causal) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
   float* sQ = smem;
@@ -402,8 +385,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int off = Nk - Nq;
   const int nq = min(kBQ, Nq - q0);
   const uint8_t* pad_row = pad ? pad + (size_t)b * Nk : nullptr;
-  load_tile<T, D, kBQ>(sQ, q + ((size_t)bh * Nq + q0) * D, nq);
-  load_tile<T, D, kBQ>(sdO, dout + ((size_t)bh * Nq + q0) * D, nq);
+  load_tile<D, kBQ>(sQ, q + ((size_t)bh * Nq + q0) * D, nq);
+  load_tile<D, kBQ>(sdO, dout + ((size_t)bh * Nq + q0) * D, nq);
   load_row_stats(sLse, sDelta, lse, delta, (size_t)bh * Nq + q0, nq);
 
   float dq_acc[4][D / 16];
@@ -416,8 +399,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     const int kv = min(kBK, Nk - k0);
-    load_tile<T, D, kBK>(sK, k + ((size_t)bh * Nk + k0) * D, kv);
-    load_tile<T, D, kBK>(sV, v + ((size_t)bh * Nk + k0) * D, kv);
+    load_tile<D, kBK>(sK, k + ((size_t)bh * Nk + k0) * D, kv);
+    load_tile<D, kBK>(sV, v + ((size_t)bh * Nk + k0) * D, kv);
     if (!mark_keys(sOk, pad_row, k0, kv)) continue;
     recompute_p_ds<D>(sQ, sK, sdO, sV, sLse, sDelta, sOk, nullptr, sdS, q0, k0, Nq, off, causal, ty, tx);
     __syncthreads();
@@ -428,9 +411,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r >= nq) continue;
-    T* row = dq + ((size_t)bh * Nq + q0 + r) * D;
+    float* row = dq + ((size_t)bh * Nq + q0 + r) * D;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) store(row + tx + 16 * j, dq_acc[i][j]);
+    for (int j = 0; j < D / 16; ++j) row[tx + 16 * j] = dq_acc[i][j];
   }
 }
 
@@ -445,87 +428,82 @@ constexpr size_t bwd_smem() {  // the larger of the two backward kernels' (dkdv)
   return sizeof(float) * (2 * (kBQ + kBK) * (D + 1) + 2 * kBQ * kLdP + 2 * kBQ) + sizeof(int) * kBK;
 }
 
-template <typename T, int D>
+template <int D>
 int forward(const void* q, const void* k, const void* v, const void* pad, void* o, void* lse, int B, int H,
             int Nq, int Nk, int causal, cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Nq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const uint8_t*>(pad), static_cast<float*>(o), static_cast<float*>(lse), H, Nq, Nk, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int backward(const void* q, const void* k, const void* v, const void* pad, const void* o, const void* lse,
              const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int H, int Nq, int Nk,
              int causal, cudaStream_t stream) {
   const size_t smem = bwd_smem<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const uint8_t* tpad = static_cast<const uint8_t*>(pad);
   const float* tlse = static_cast<const float*>(lse);
   float* tdelta = static_cast<float*>(delta);
   const int rows = B * H * Nq;
-  flash_bwd_delta_kernel<T, D><<<(rows + kThreads / 4 - 1) / (kThreads / 4), kThreads, 0, stream>>>(
+  flash_bwd_delta_kernel<D><<<(rows + kThreads / 4 - 1) / (kThreads / 4), kThreads, 0, stream>>>(
       static_cast<const float*>(o), tdo, tdelta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<T, D><<<dim3(B * H, (Nk + kBK - 1) / kBK), kThreads, smem, stream>>>(
-      tq, tk, tv, tpad, tdo, tlse, tdelta, static_cast<T*>(dk), static_cast<T*>(dv), H, Nq, Nk, causal);
+  flash_bwd_dkdv_kernel<D><<<dim3(B * H, (Nk + kBK - 1) / kBK), kThreads, smem, stream>>>(
+      tq, tk, tv, tpad, tdo, tlse, tdelta, static_cast<float*>(dk), static_cast<float*>(dv), H, Nq, Nk, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<T, D><<<dim3(B * H, (Nq + kBQ - 1) / kBQ), kThreads, smem, stream>>>(
-      tq, tk, tv, tpad, tdo, tlse, tdelta, static_cast<T*>(dq), H, Nq, Nk, causal);
+  flash_bwd_dq_kernel<D><<<dim3(B * H, (Nq + kBQ - 1) / kBQ), kThreads, smem, stream>>>(
+      tq, tk, tv, tpad, tdo, tlse, tdelta, static_cast<float*>(dq), H, Nq, Nk, causal);
   return (int)cudaGetLastError();
 }
 
-bool valid_args(int B, int H, int Nq, int Nk, int D, int dtype) {
-  return B >= 1 && H >= 1 && Nq >= 1 && Nk >= 1 && (D == 64 || D == 128) && (dtype == 0 || dtype == 1) &&
-         (Nq + kBQ - 1) / kBQ <= 65535 && (Nk + kBK - 1) / kBK <= 65535;
+bool valid_args(int B, int H, int Nq, int Nk, int D) {
+  return B >= 1 && H >= 1 && Nq >= 1 && Nk >= 1 && (D == 64 || D == 128) && (Nq + kBQ - 1) / kBQ <= 65535 &&
+         (Nk + kBK - 1) / kBK <= 65535;
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. dtype (of q, k, v, dout and the
-// gradients): 0 = float32, 1 = bfloat16 (the backward only; the bf16 forward
-// is flash_forward_mma.cu's); o and lse are float32; D: 64 or
-// 128; pad: (B, Nk) uint8 or null. The Python wrapper checks every
-// pointer, shape and type and allocates every output and scratch buffer.
-// Each returns cudaGetLastError() after its launches (0 = launched).
+// Plain C entry points, bound with ctypes. q, k, v, dout and the gradients
+// are float32 (bfloat16 takes flash_forward_mma.cu and
+// flash_backward_mma.cu); o and lse are float32; D: 64 or 128; pad: (B, Nk)
+// uint8 or null. The Python wrapper checks every pointer, shape and type and
+// allocates every output and scratch buffer. Each returns cudaGetLastError()
+// after its launches (0 = launched).
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, const void* pad, void* o,
-                                       void* lse, int B, int H, int Nq, int Nk, int D, int causal, int dtype,
-                                       void* stream) {
-  if (!valid_args(B, H, Nq, Nk, D, dtype) || dtype != 0) return (int)cudaErrorInvalidValue;
+                                       void* lse, int B, int H, int Nq, int Nk, int D, int causal, void* stream) {
+  if (!valid_args(B, H, Nq, Nk, D)) return (int)cudaErrorInvalidValue;
   (void)cudaGetLastError();  // clear a stale error so the one returned is this launch's
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? forward<float, 64>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s)
-                 : forward<float, 128>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
+  return D == 64 ? forward<64>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s)
+                 : forward<128>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
 }
 
-// delta: (B, H, Nq) float32 scratch; dq, dk, dv in the inputs' dtype.
+// delta: (B, H, Nq) float32 scratch.
 extern "C" int flash_attention_backward(const void* q, const void* k, const void* v, const void* pad,
                                         const void* o, const void* lse, const void* dout, void* delta, void* dq,
                                         void* dk, void* dv, int B, int H, int Nq, int Nk, int D, int causal,
-                                        int dtype, void* stream) {
-  if (!valid_args(B, H, Nq, Nk, D, dtype)) return (int)cudaErrorInvalidValue;
+                                        void* stream) {
+  if (!valid_args(B, H, Nq, Nk, D)) return (int)cudaErrorInvalidValue;
   (void)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return D == 64 ? backward<float, 64>(q, k, v, pad, o, lse, dout, delta, dq, dk, dv, B, H, Nq, Nk, causal, s)
-                   : backward<float, 128>(q, k, v, pad, o, lse, dout, delta, dq, dk, dv, B, H, Nq, Nk, causal, s);
-  return D == 64
-             ? backward<__nv_bfloat16, 64>(q, k, v, pad, o, lse, dout, delta, dq, dk, dv, B, H, Nq, Nk, causal, s)
-             : backward<__nv_bfloat16, 128>(q, k, v, pad, o, lse, dout, delta, dq, dk, dv, B, H, Nq, Nk, causal, s);
+  return D == 64 ? backward<64>(q, k, v, pad, o, lse, dout, delta, dq, dk, dv, B, H, Nq, Nk, causal, s)
+                 : backward<128>(q, k, v, pad, o, lse, dout, delta, dq, dk, dv, B, H, Nq, Nk, causal, s);
 }

@@ -7,8 +7,9 @@
 // inputs, and perceiver_io_tpu/parallel/ring_attention.py:_splash_fwd_block
 // (ring attention's fully visible blocks: the same kernel with no causal mask,
 // whose float32 output and log-sum-exp the ring merges). The float32 forward
-// and the backward (B1b) stay in flash_attention.cu. Same function, same
-// layouts as that file's forward:
+// stays in flash_attention.cu; the bf16 backward (B1b) is
+// flash_backward_mma.cu. Same function, same layouts as flash_attention.cu's
+// forward:
 //   q     (B, H, Nq, D)  bfloat16, already scaled and rotated queries
 //   k, v  (B, H, Nk, D)  bfloat16 keys and values
 //   pad   (B, Nk)        uint8, 1 = padding key (the splash segment id 0), or null
@@ -46,80 +47,12 @@
 //     float32 output holds 1e-4 (one term moves it by up to ~8e-4).
 // Next steps (later work): wgmma with TMA loads and warp specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kBQ = 128;               // query rows per block
+constexpr int kBQ = 16 * kWarps;       // query rows per block, 16 a warp
 constexpr int kBK = 64;                // key rows per tile
-constexpr int kWarps = kBQ / 16;       // each warp owns 16 query rows
-constexpr int kThreads = 32 * kWarps;
-constexpr float kLog2e = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
-
-// Element offset of 16-byte chunk c of row r in a row-major (rows, D) bf16
-// tile whose chunks are XOR-swizzled by the row's low three bits.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zero-filled when !valid (no bytes read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [0, valid) of a row-major (rows, D) slice into a swizzled (kRows, D)
-// tile; rows past `valid` are zeros.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, int valid) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool ok = r < valid;
-    cp_async16(smem_addr(dst + swz<D>(r, c)), src + (size_t)(ok ? r : 0) * D + c * 8, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a b for one 16 x 8 x 16 tile: a (16 x 16, row-major A-fragment), b
-// (16 x 8, column-major B-fragment), bf16 in and float32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) { return *reinterpret_cast<uint32_t*>(&v); }
 
 // ----------------------------------------------------------------- kernel
 template <int D, bool kSplitP>

@@ -3,10 +3,11 @@
 Every ``perceiver_io_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds. Each library's file
-name is keyed by a hash of its source and the flags, so editing one kernel
-rebuilds that one only, and an unchanged source is loaded as it is. The build
-happens at first use (or in ``build()``, which starts one ``nvcc`` per source,
-all at once), into ``perceiver_io_torch/_build/`` (git-ignored).
+name is keyed by a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so editing one kernel rebuilds that one only, and an unchanged
+source is loaded as it is. The build happens at first use (or in ``build()``,
+which starts one ``nvcc`` per source, all at once), into
+``perceiver_io_torch/_build/`` (git-ignored).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -7,8 +7,10 @@ Hopper kernels through a ``torch.autograd.Function``, or raises: B1a, the
 forward, is ``perceiver_io_torch/csrc/flash_forward_mma.cu`` for bfloat16
 (tensor-core ``mma.sync`` tiles) and ``csrc/flash_attention.cu`` for float32
 (the tensor cores have no float32 product); B1b, the backward, is
-``csrc/flash_attention.cu`` for both (each file's header says what bounds
-its kernels). On a CPU tensor the same Function
+``csrc/flash_backward_mma.cu`` for bfloat16 (two deterministic passes on
+``mma.sync`` tiles, dK/dV and dQ, as the TPU's splash runs them) and
+``csrc/flash_attention.cu`` for float32 (each file's header says what
+bounds its kernels). On a CPU tensor the same Function
 computes the kernels' arithmetic in plain PyTorch (``_forward_plain``,
 ``_backward_plain``). ``flash_attention_reference`` is the plain version
 written with autograd-native ops: the CUDA kernels and the CPU route are held
@@ -170,9 +172,11 @@ def _backward_plain(q, k, v, pad_mask, causal, o, lse, do) -> Tuple[torch.Tensor
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B1a forward, B1b backward (CPU tensors: their plain arithmetic).
-    Saves (q, k, v, o, lse) and the pad mask, with o the float32 (or wider)
-    output before its cast to q's dtype."""
+    """B1a forward, B1b backward (CPU tensors: their plain arithmetic). On a
+    CUDA tensor bfloat16 runs ``flash_forward_mma.cu`` forward and
+    ``flash_backward_mma.cu`` backward, float32 ``flash_attention.cu`` both
+    ways. Saves (q, k, v, o, lse) and the pad mask, with o the float32 (or
+    wider) output before its cast to q's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad_mask, causal):
@@ -197,9 +201,10 @@ class _FlashAttention(torch.autograd.Function):
 
 
 # ------------------------------------------------------------------ CUDA
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _fns = None
 _mma_fn = None
+_mma_bwd_fn = None
 
 
 def _entries():
@@ -212,10 +217,10 @@ def _entries():
         lib = library("flash_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
         fwd, bwd = lib.flash_attention_forward, lib.flash_attention_backward
-        # q k v pad o lse B H Nq Nk D causal dtype stream
-        fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-        # q k v pad o lse dout delta dq dk dv B H Nq Nk D causal dtype stream
-        bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        # q k v pad o lse B H Nq Nk D causal stream
+        fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        # q k v pad o lse dout delta dq dk dv B H Nq Nk D causal stream
+        bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         fwd.restype = bwd.restype = i
         _fns = (fwd, bwd)
     return _fns
@@ -235,6 +240,28 @@ def _mma_entry():
         fn.restype = i
         _mma_fn = fn
     return _mma_fn
+
+
+def _mma_backward_entry():
+    """The bfloat16 backward's C entry point (``csrc/flash_backward_mma.cu``),
+    built and loaded at first use (never at import)."""
+    global _mma_bwd_fn
+    if _mma_bwd_fn is None:
+        from perceiver_io_torch.ops.cuda_build import library
+
+        fn = library("flash_backward_mma").flash_backward_mma
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # q k v pad o lse dout delta dq dk dv B H Nq Nk D causal stream
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
+        _mma_bwd_fn = fn
+    return _mma_bwd_fn
+
+
+def _check_aligned(tensors: dict, what: str) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
+            raise ValueError(f"the bf16 flash {what} needs 16-byte aligned tensors; {name} is not")
 
 
 def _check_cuda(tensors: dict, q: torch.Tensor) -> None:
@@ -273,16 +300,14 @@ def _forward_entry(q, k, v, pad_mask, causal, split_p) -> Tuple[torch.Tensor, to
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pad_ptr = None if pad is None else pad.data_ptr()
     if q.dtype == torch.bfloat16:
-        for t_name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
-                raise ValueError(f"the bf16 flash forward needs 16-byte aligned tensors; {t_name} is not")
+        _check_aligned({"q": q, "k": k, "v": v}, "forward")
         name = "flash_forward_mma"
         err = _mma_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, o.data_ptr(), lse.data_ptr(), b, h,
                            n_q, k.shape[2], d, int(causal), int(split_p), stream)
     else:
         name = "flash_attention_forward"
         err = _entries()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, o.data_ptr(), lse.data_ptr(), b, h,
-                            n_q, k.shape[2], d, int(causal), _DTYPES[q.dtype], stream)
+                            n_q, k.shape[2], d, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return o, lse
@@ -318,7 +343,9 @@ def ring_block_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_backward(q, k, v, pad_mask, causal, o, lse, do) -> Tuple[torch.Tensor, ...]:
-    """Launch B1b (its three kernels) on the current stream, or raise."""
+    """Launch B1b (its delta, dK/dV and dQ kernels) on the current stream, or
+    raise: bfloat16 takes the tensor-core kernels (``flash_backward_mma``),
+    float32 ``flash_attention_backward``."""
     global backward_launches
     pad = _pad_bytes(pad_mask)
     _check_cuda({"q": q, "k": k, "v": v, "pad_mask": pad, "o": o, "lse": lse, "do": do}, q)
@@ -327,12 +354,18 @@ def _launch_backward(q, k, v, pad_mask, causal, o, lse, do) -> Tuple[torch.Tenso
     b, h, n_q, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b, h, n_q, dtype=torch.float32, device=q.device)
-    err = _entries()[1](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pad is None else pad.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, n_q, k.shape[2], d, int(causal), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pad is None else pad.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, n_q, k.shape[2], d, int(causal))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        _check_aligned({"q": q, "k": k, "v": v, "do": do}, "backward")
+        name = "flash_backward_mma"
+        err = _mma_backward_entry()(*args, stream)
+    else:
+        name = "flash_attention_backward"
+        err = _entries()[1](*args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     backward_launches += 1
     return dq, dk, dv

@@ -12,11 +12,11 @@ After WARMUP steps, REPEATS windows of STEPS steps run without the profiler
 the loss: median, min, max); one more window runs under ``torch.profiler``,
 which gives the device kernel time per step, the launches per step, the
 device's idle share of that window (1 - device / wall) and the share of the
-flash kernels (B1a ``flash_fwd_kernel``, B1b ``flash_bwd_*``; on the
-sequence-parallel path ``flash_fwd_kernel`` is B5, the ring's fully visible
-blocks, and B1 is never launched) and of the matrix products in the device
-time. Prints one JSON object, with the card's name and power limit. Needs a
-CUDA card.
+flash kernels (B1a ``flash_fwd_*``; B1b by pass: its delta, dK/dV and dQ
+kernels ``flash_bwd_{delta,dkdv,dq}_*``; on the sequence-parallel path
+``flash_fwd_*`` is B5, the ring's fully visible blocks, and B1 is never
+launched) and of the matrix products in the device time. Prints one JSON
+object, with the card's name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -48,8 +48,9 @@ SEED = 0
 def _kind(name: str, ring: bool) -> str:
     if "flash_fwd" in name:
         return "B5 ring block" if ring else "B1a flash forward"
-    if "flash_bwd" in name:
-        return "B1b flash backward"
+    for part, kind in (("flash_bwd_delta", "B1b delta"), ("flash_bwd_dkdv", "B1b dK/dV"), ("flash_bwd_dq", "B1b dQ")):
+        if part in name:
+            return kind
     if any(s in name.lower() for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
         return "matrix products"
     return "other"

@@ -224,8 +224,9 @@ def _flash_limit(want, dtype):
 ], ids=["ragged", "short_keys", "flagship", "clm_30m", "ragged_128", "not_causal"])
 def test_flash_kernels_match_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pads, causal):
     """B1a and B1b (left-padded keys) against the plain version and its
-    autograd gradients; pad keys get exact-zero dK and dV, queries that see
-    no key exact-zero outputs."""
+    autograd gradients (bf16: flash_forward_mma.cu and flash_backward_mma.cu;
+    float32: flash_attention.cu); pad keys get exact-zero dK and dV, queries
+    that see no key exact-zero outputs."""
     g = torch.Generator(card).manual_seed(nq)
     q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).to(dtype)
     k, v = (torch.randn(b, h, nk, d, generator=g, device=card).to(dtype) for _ in range(2))
@@ -282,6 +283,62 @@ def test_flash_forward_route(card, monkeypatch, dtype, entry):
     torch.cuda.synchronize()
     assert (fl.forward_launches, fl.block_launches) == (before[0] + 2, before[1] + 1)
     assert calls == ([("mma", 0), ("mma", 1), ("mma", 1)] if entry == "mma" else [("fp32", None)] * 3)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "mma"), (torch.float32, "fp32")])
+def test_flash_backward_route(card, monkeypatch, dtype, entry):
+    """bfloat16 reaches the tensor-core backward (flash_backward_mma.cu),
+    float32 flash_attention.cu's backward; each backward adds one to
+    backward_launches."""
+    calls = []
+    mma, entries = fl._mma_backward_entry(), fl._entries()
+
+    def spy_mma(*args):
+        calls.append("mma")
+        return mma(*args)
+
+    def spy_fp32(*args):
+        calls.append("fp32")
+        return entries[1](*args)
+
+    monkeypatch.setattr(fl, "_mma_backward_entry", lambda: spy_mma)
+    monkeypatch.setattr(fl, "_entries", lambda: (entries[0], spy_fp32))
+    leaves = [torch.randn(1, 2, 128, 64, device=card).to(dtype).requires_grad_() for _ in range(3)]
+    before = fl.backward_launches
+    for _ in range(2):
+        torch.autograd.grad(fl.splash_mha(*leaves, causal=True).float().sum(), leaves)
+    torch.cuda.synchronize()
+    assert fl.backward_launches == before + 2
+    assert calls == [entry] * 2
+
+
+def test_flash_backward_is_deterministic(card):
+    """No atomics: the bf16 backward twice on the same inputs (a ragged,
+    left-padded, causal flagship-width case) gives the same bits."""
+    g = torch.Generator(card).manual_seed(7)
+    b, h, nq, nk, d = 2, 4, 200, 330, 128
+    q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).bfloat16()
+    k, v = (torch.randn(b, h, nk, d, generator=g, device=card).bfloat16() for _ in range(2))
+    do = torch.randn(b, h, nq, d, generator=g, device=card).bfloat16()
+    pad = torch.arange(nk, device=card)[None, :] < torch.tensor([0, 40], device=card)[:, None]
+    o, lse = fl._launch_forward(q, k, v, pad, True)
+    first = fl._launch_backward(q, k, v, pad, True, o, lse, do)
+    second = fl._launch_backward(q, k, v, pad, True, o, lse, do)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_flash_backward_rejects_a_misaligned_gradient(card):
+    """The bf16 backward copies rows of q, k, v and dO in 16-byte pieces: a
+    dO that is not 16-byte aligned raises before any launch."""
+    q = torch.randn(1, 2, 128, 64, device=card).bfloat16()
+    o, lse = fl._launch_forward(q, q, q, None, True)
+    shifted = torch.zeros(2 * 128 * 64 + 1, device=card, dtype=torch.bfloat16)[1:].view(1, 2, 128, 64)
+    before = fl.backward_launches
+    with pytest.raises(ValueError, match="16-byte aligned tensors; do is not"):
+        fl._launch_backward(q, q, q, None, True, o, lse, shifted)
+    assert fl.backward_launches == before
 
 
 def test_flash_rejects_what_it_does_not_take(card):

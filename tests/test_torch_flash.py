@@ -2,8 +2,8 @@
 B1a/B1b and the autograd Function's CPU route) against the JAX package's
 ``splash_mha`` in Pallas interpret mode, at tests/test_flash.py's shapes
 (B=1, H=2, D=64, 128 queries x 256 keys), in float32; and the bf16 CUDA
-forward's rounding of P, emulated in plain PyTorch, against the plain
-version's limits.
+kernels' roundings, emulated in plain PyTorch (the forward's P; the
+backward's P and dS, with its tiling), against the plain version's limits.
 
 Tolerances: the forward within atol 2e-5, as the JAX package's own tests
 hold splash against its XLA formulation; dq, dk and dv against ``jax.grad``
@@ -12,6 +12,9 @@ another order; gradients here are of order 0.1-1). The Function's CPU route
 (FlashAttention-2's recomputed backward) is pinned to autograd of the plain
 version in float64 (``gradcheck``, and atol 1e-12 on the gradients).
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +28,7 @@ from perceiver_io_tpu.ops.flash import splash_mha as jax_splash_mha
 
 B, H, D = 1, 2, 64
 ATOL = 2e-5
+KERNEL_SOURCE = Path(fl.__file__).resolve().parent.parent / "csrc" / "flash_backward_mma.cu"
 
 
 @pytest.fixture(scope="module")
@@ -195,6 +199,112 @@ def test_rounding_budget_of_the_bf16_forward():
         dq[split_p] = fl._backward_plain(q, k, v, pad, False, o, lse, do)[0].float()
         assert ((dq[split_p] - want_dq).abs() <= b1_limit(want_dq)).all()
     assert (dq[True] - want_dq).abs().max() * 4 <= (dq[False] - want_dq).abs().max()
+
+
+def _kernel_terms(x, terms):
+    """x as the kernel feeds it to a product: float32 unrounded (terms=0),
+    rounded to bf16 once (1), or as hi + lo bf16 terms (2)."""
+    if terms == 0:
+        return x
+    hi = x.bfloat16().float()
+    return hi if terms == 1 else hi + (x - hi).bfloat16().float()
+
+
+def _bf16_backward_arithmetic(q, k, v, pad, causal, o, lse, do, terms):
+    """The bf16 backward's arithmetic (csrc/flash_backward_mma.cu) in plain
+    float32 PyTorch: delta = rowsum(dO * O) from the float32 O; the dK/dV
+    pass over 128-key blocks and the query tiles from each block's causal
+    bound on, the dQ pass over 128-query blocks and the key tiles up to
+    theirs (tiles of 64 rows, 32 at D 128); P and dS go into their products
+    in ``terms`` bf16 terms (0: unrounded); pad keys' dK and dV are zeros.
+    Returns (dq, dk, dv) in float32, before the kernel's cast to bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    rows, cols, off = 128, 32 if d == 128 else 64, nk - nq
+    visible = fl._visibility(nq, nk, pad, causal, q.device)
+    lse_safe = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    delta = (dof * o.float()).sum(-1)
+
+    def p_ds(qs, ks):
+        s = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, qs], kf[:, :, ks])
+        p = torch.where(visible[:, :, qs, ks], torch.exp(s - lse_safe[:, :, qs, None]), torch.zeros_like(s))
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof[:, :, qs], vf[:, :, ks])
+        return p, p * (dp - delta[:, :, qs, None])
+
+    dq, dk, dv = torch.zeros(b, h, nq, d), torch.zeros(b, h, nk, d), torch.zeros(b, h, nk, d)
+    for k0 in range(0, nk, rows):
+        ks = slice(k0, k0 + rows)
+        for q0 in range(max(0, k0 - off) // cols * cols if causal else 0, nq, cols):
+            qs = slice(q0, q0 + cols)
+            p, ds = p_ds(qs, ks)
+            dv[:, :, ks] += torch.einsum("bhqk,bhqd->bhkd", _kernel_terms(p, terms), dof[:, :, qs])
+            dk[:, :, ks] += torch.einsum("bhqk,bhqd->bhkd", _kernel_terms(ds, terms), qf[:, :, qs])
+    for q0 in range(0, nq, rows):
+        qs = slice(q0, q0 + rows)
+        k_end = min(nk, max(0, off + q0 + min(rows, nq - q0))) if causal else nk
+        for k0 in range(0, k_end, cols):
+            ks = slice(k0, k0 + cols)
+            dq[:, :, qs] += torch.einsum("bhqk,bhkd->bhqd", _kernel_terms(p_ds(qs, ks)[1], terms), kf[:, :, ks])
+    if pad is not None:
+        dk, dv = (t.masked_fill(pad[:, None, :, None], 0.0) for t in (dk, dv))
+    return dq, dk, dv
+
+
+def test_bf16_backward_emulation_without_rounding_is_the_plain_backward():
+    """The emulation's tiling (causal starts and ends, ragged tiles, key
+    blocks that are all padding) changes nothing but the order of float32
+    sums: unrounded, it equals B1b's plain version within 1e-5, at a ragged,
+    left-padded, causal shape whose first queries see no key."""
+    rs = np.random.RandomState(3)
+    b, h, nq, nk = 2, 2, 200, 150
+    for d in (64, 128):
+        q = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32) * d**-0.5)
+        k, v = (torch.from_numpy(rs.randn(b, h, nk, d).astype(np.float32)) for _ in range(2))
+        do = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32))
+        pad = torch.arange(nk)[None, :] < torch.tensor([0, 140])[:, None]
+        o, lse = fl._forward_plain(q, k, v, pad, True)
+        assert torch.isneginf(lse).any()  # rows that see no key
+        got = _bf16_backward_arithmetic(q, k, v, pad, True, o, lse, do, terms=0)
+        want = fl._backward_plain(q, k, v, pad, True, o, lse, do)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+
+
+def test_rounding_budget_of_the_bf16_backward():
+    """Why the bf16 backward feeds P and dS to their products as two bf16
+    terms (kTerms = 2 in csrc/flash_backward_mma.cu). With two, dq, dk and
+    dv (cast to bf16) stay within B1's bf16 limit (0.03 x RMS + one bf16
+    step) of autograd's gradients of the plain version, at a causal
+    self-attention at flagship width (its first rows see one or a few keys)
+    and at a left-padded cross-attention. With one, the padded rows' few-key
+    queries put dv (P's rounding) and dk (dS's) past it: their terms are
+    large and their sums small."""
+    terms = int(re.search(r"constexpr int kTerms = (\d+);", KERNEL_SOURCE.read_text()).group(1))
+    assert terms == 2
+    rs = np.random.RandomState(0)
+
+    def b1_limit(y):
+        return 0.03 * y.pow(2).mean().sqrt() + 2.0**-7 * y.abs()
+
+    worst = {}
+    for name, (b, h, nq, nk, d, pads) in {"self_attention": (4, 10, 512, 512, 128, None),
+                                          "padded_cross": (4, 2, 256, 1152, 64, [0, 7, 300, 1000])}.items():
+        q = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32) * d**-0.5).bfloat16()
+        k, v = (torch.from_numpy(rs.randn(b, h, nk, d).astype(np.float32)).bfloat16() for _ in range(2))
+        do = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32)).bfloat16()
+        pad = None if pads is None else torch.arange(nk)[None, :] < torch.tensor(pads)[:, None]
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(fl.flash_attention_reference(*leaves, pad_mask=pad, causal=True), leaves, do)
+        o, lse = fl._forward_plain(q, k, v, pad, True)
+        for n_terms in (1, terms):
+            got = _bf16_backward_arithmetic(q, k, v, pad, True, o, lse, do, n_terms)
+            for key, x, y in zip(("dq", "dk", "dv"), got, want):
+                y = y.float()
+                worst[name, n_terms, key] = ((x.bfloat16().float() - y).abs() / b1_limit(y)).max().item()
+    assert all(worst[name, terms, key] <= 1 for name in ("self_attention", "padded_cross")
+               for key in ("dq", "dk", "dv")), worst
+    assert worst["padded_cross", 1, "dv"] > 1.5 and worst["padded_cross", 1, "dk"] > 1.5, worst
 
 
 def test_wrapper_checks_shapes():
