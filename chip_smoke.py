@@ -15,7 +15,10 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     shapes: f32 max error 1e-4; bf16 and quantized pools 0.03 x
                     the RMS of the plain output; times, the least time the
                     card could take (bytes or operations) and a library call
-                    as a yardstick. B2 (decode attention) at the flagship's
+                    as a yardstick. B2, B3 and B4 (split-K) also print each
+                    call's split count and blocks (launched, and working:
+                    the rest return at once) and must give the same bits
+                    twice. B2 (decode attention) at the flagship's
                     and the 30M recipe's shapes; B3 (paged decode) in f32,
                     bf16 and int8 pools and B4 (ragged paged) in int4, bf16
                     and int8 pools, at the flagship cross-attention shape (8
@@ -40,7 +43,11 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     self-attention blocks at {"seq": 4} and the flagship's
                     cross-attention block at {"seq": 2}, the float32 output
                     and log-sum-exp within 1e-4 in both input types, an
-                    all-padding row exact zeros and -inf
+                    all-padding row exact zeros and -inf; then
+                    decode_host: B2, B3 and B4 at their head cases, the
+                    host's microseconds a wrapper call takes beside the
+                    card's ms a call, with and without the host's enqueue
+                    time (decode_host_times)
   4. main_path      flagship generation in bf16 at batch 8 through generate():
                     greedy, rolling window, chunked, left-padded, each REPEATS
                     times; prefill and the decode loop are timed apart inside
@@ -156,9 +163,16 @@ def card_line() -> str:
 _FLUSH = None
 
 
-def time_ms(fn, reps=25, warmup=3) -> float:
+SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock
+
+
+def time_ms(fn, reps=25, warmup=3, spin=False) -> float:
     """Median device time of ``fn`` in ms (CUDA events), with the 50 MB L2
-    flushed before each run, as a decode step finds the caches."""
+    flushed before each run, as a decode step finds the caches. When the host
+    takes longer to enqueue ``fn`` than the flush takes to run, the reading
+    holds that difference too; with ``spin``, a spin kernel
+    (``torch.cuda._sleep``) between the flush and the start event keeps the
+    card busy meanwhile, so the reading is the card's alone."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
@@ -167,6 +181,8 @@ def time_ms(fn, reps=25, warmup=3) -> float:
     times = []
     for _ in range(reps):
         _FLUSH.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -181,7 +197,7 @@ def decode_case(b, h, d, r, cap, n_q, dtype, pads, g):
     """Inputs of one decode-attention call as the model makes them: a full
     window, rows left-padded by ``pads``, slot angles from the shifted
     positions, queries pre-scaled."""
-    dev = "cuda"
+    dev = DEVICE
     shift = torch.tensor(pads, dtype=torch.int32, device=dev)[:, None]
     q = (torch.randn(b, h, n_q, d, generator=g, device=dev) * d**-0.5).to(dtype)
     k = torch.randn(b, cap, h * d, generator=g, device=dev).to(dtype)
@@ -221,20 +237,23 @@ def library_call(q, k, v, ang, q_pos, pad, live):
     return lambda: F.scaled_dot_product_attention(q, kr, vv, attn_mask=mask, scale=1.0)
 
 
+DECODE_SHAPES = {  # name: (batch, heads, head dim, rotary width, capacity)
+    "flagship_cross_attention": (8, 10, 128, 128, 1024),
+    "flagship_self_attention": (8, 10, 128, 128, 512),
+    "clm_30m_decode": (8, 8, 64, 32, 4096),
+}
+PADS8 = [0, 0, 3, 17, 100, 250, 0, 1]  # left pads of the 8 rows
+
+
 def check_decode_kernel():
-    g = torch.Generator("cuda").manual_seed(SEED)
-    pads8 = [0, 0, 3, 17, 100, 250, 0, 1]
-    shapes = {  # name: (batch, heads, head dim, rotary width, capacity)
-        "flagship_cross_attention": (8, 10, 128, 128, 1024),
-        "flagship_self_attention": (8, 10, 128, 128, 512),
-        "clm_30m_decode": (8, 8, 64, 32, 4096),
-    }
+    g = torch.Generator(DEVICE).manual_seed(SEED)
     results = {}
-    for name, (b, h, d, r, cap) in shapes.items():
+    for name, (b, h, d, r, cap) in DECODE_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             for n_q in (1, 8):
-                args = decode_case(b, h, d, r, cap, n_q, dtype, pads8, g)
+                args = decode_case(b, h, d, r, cap, n_q, dtype, PADS8, g)
                 got = dk.fused_decode_attention(*args)
+                again = dk.fused_decode_attention(*args)
                 want = dk.fused_decode_attention_reference(*args).float()
                 torch.cuda.synchronize()
                 err = (got.float() - want).abs().max().item()
@@ -242,10 +261,17 @@ def check_decode_kernel():
                 atol = F32_ATOL if dtype == torch.float32 else BF16_RMS_FRACTION * rms
                 if not err <= atol:
                     raise AssertionError(f"{name} {dtype} n_q={n_q}: kernel vs plain max error {err} > {atol}")
-                bound, bound_by = byte_bound(b, h, d, r, cap, n_q, torch.finfo(dtype).bits // 8, pads8)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {dtype} n_q={n_q}: two runs differ")
+                bound, bound_by = byte_bound(b, h, d, r, cap, n_q, torch.finfo(dtype).bits // 8, PADS8)
+                splits = dk.decode_splits(b, h, cap, dk.num_sms(args[0].device))  # q_pos is an int, live a tensor
+                _, _, _, _, q_pos, pad, live = args
+                working = h * sum(len(dk.decode_split_rows(q_pos, lv, cap, pad_row, splits))
+                                  for lv, pad_row in zip(live.tolist(), pad.tolist()))
                 rec = dict(
                     shape=name, dtype=str(dtype).removeprefix("torch."), n_q=n_q, max_abs_err=err, atol=atol,
-                    output_rms=rms,
+                    output_rms=rms, bit_identical=True, splits=splits, blocks_launched=b * h * splits,
+                    blocks_working=working,
                     ms=time_ms(lambda: dk.fused_decode_attention(*args)),
                     plain_ms=time_ms(lambda: dk.fused_decode_attention_reference(*args)),
                     library_ms=time_ms(library_call(*args)), bound_ms=bound, bound_by=bound_by,
@@ -325,23 +351,26 @@ def paged_library_call(q, kp, vp, table, start, live, ang, window, scales, qbits
     return lambda: F.scaled_dot_product_attention(q, kr, vv, attn_mask=mask, scale=1.0)
 
 
+def paged_rows(window):
+    """The 8 rows of a paged kernel check: B3's (start, live), full windows
+    at ring offsets that wrap and partial lives that leave dead pages; B4's
+    (start, live, causal bound), decode rows, the finish of a 900-token
+    prompt over 512 latents (bounds window - 512 + j) and two live = 0
+    lanes."""
+    t = lambda xs: torch.tensor(xs, dtype=torch.int32, device=DEVICE)
+    n, latents = 900, 512
+    return (t([0, 517, window - 1, 333, 129, 64, 1000 % window, 5]),
+            t([window, window, 700, 300, 129, 1, window - 24, 512]),
+            t([77, window - 3, n, n, n, n, 0, 9]), t([window, 600, n, n, n, n, 0, 0]),
+            t([window - 1, window - 1] + [window - latents + j for j in (0, 1, 255, 511)] + [window - 1, window - 1]))
+
+
 def check_paged_kernels():
     """B3 and B4 against their plain versions; returns the records."""
     g = torch.Generator(DEVICE).manual_seed(SEED + 3)
     records = []
     for name, (w, h, d, r, window, ps) in PAGED_SHAPES.items():
-        # B3 rows: full windows at ring offsets that wrap, partial lives that leave dead pages
-        b3_start = torch.tensor([0, 517, window - 1, 333, 129, 64, 1000 % window, 5], dtype=torch.int32,
-                                device=DEVICE)
-        b3_live = torch.tensor([window, window, 700, 300, 129, 1, window - 24, 512], dtype=torch.int32,
-                               device=DEVICE)
-        # B4 items: decode rows, the finish of a 900-token prompt over 512
-        # latents (causal bounds window - 512 + j) and two live = 0 lanes
-        n, latents = 900, 512
-        b4_start = torch.tensor([77, window - 3, n, n, n, n, 0, 9], dtype=torch.int32, device=DEVICE)
-        b4_live = torch.tensor([window, 600, n, n, n, n, 0, 0], dtype=torch.int32, device=DEVICE)
-        b4_cb = torch.tensor([window - 1, window - 1] + [window - latents + j for j in (0, 1, 255, 511)]
-                             + [window - 1, window - 1], dtype=torch.int32, device=DEVICE)
+        b3_start, b3_live, b4_start, b4_live, b4_cb = paged_rows(window)
         cases = [("fused_paged_decode_attention", pool, q_dtype) for pool, q_dtype in
                  (("f32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.bfloat16))]
         cases += [("fused_ragged_paged_attention", pool, torch.bfloat16) for pool in ("int4", "bf16", "int8")]
@@ -358,6 +387,7 @@ def check_paged_kernels():
                 plain = lambda: rk.fused_ragged_paged_attention_reference(*args, qbits=qbits, **scales)
                 eff_start, eff_live = rk.fold_causal_bound(b4_start, b4_live, b4_cb, window)
             got = launch()
+            again = launch()
             want = plain().float()
             torch.cuda.synchronize()
             err = (got.float() - want).abs().max().item()
@@ -368,10 +398,16 @@ def check_paged_kernels():
             zero_lanes = eff_live == 0
             if zero_lanes.any() and not (got[zero_lanes] == 0).all():
                 raise AssertionError(f"{kernel} {name} {pool}: live = 0 lanes are not exact zeros")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{kernel} {name} {pool}: two runs differ")
             bound, bound_by = paged_bound(h, d, r, ps, window, pool, q, eff_start, eff_live)
+            splits = pk.paged_splits(w, h, window, ps, dk.num_sms(q.device))
+            working = h * sum(len(pk.paged_split_rows(s0, lv, window, ps, splits))
+                              for s0, lv in zip(eff_start.tolist(), eff_live.tolist()))
             rec = dict(kernel=kernel, shape=name, pool=pool, q_dtype=str(q_dtype).removeprefix("torch."),
                        page_size=ps, window=window, max_abs_err=err, atol=atol, output_rms=rms,
-                       zero_lanes=int(zero_lanes.sum()),
+                       zero_lanes=int(zero_lanes.sum()), bit_identical=True, splits=splits,
+                       blocks_launched=w * h * splits, blocks_working=working,
                        ms=time_ms(launch), plain_ms=time_ms(plain),
                        library_ms=time_ms(paged_library_call(q, kp, vp, table, eff_start, eff_live, ang, window,
                                                              scales, qbits)),
@@ -380,6 +416,59 @@ def check_paged_kernels():
             records.append(rec)
     return records
 
+
+def host_us(fn, calls=100, repeats=10) -> float:
+    """Host microseconds one call of ``fn`` takes (the wrapper's Python, the
+    ctypes call, the launch): ``calls`` calls queued back to back with no
+    sync between them, on the host clock; the least of ``repeats``, since
+    the host's cores are shared."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(times)
+
+
+def decode_host_times():
+    """B2, B3 and B4 at their head cases (B2 at its three shapes in bf16,
+    n_q 1 and 8; B3 over a bf16 pool and B4 over an int4 pool at the flagship
+    cross-attention shape): the host's microseconds a wrapper call takes
+    (``host_us``) beside the card's ms a call and the library call's, timed
+    as kernel_check times them (``ms``, ``library_ms``) and with the host's
+    enqueue time kept out (``spin_ms``, ``library_spin_ms``); one JSON line a
+    case. It calls only the wrappers' public
+    functions, so it times another checkout's package the same way: from that
+    checkout's root, load this file by its path
+    (``importlib.util.spec_from_file_location``) and call this function."""
+    g = torch.Generator(DEVICE).manual_seed(SEED)
+    cases = {}
+    for name, (b, h, d, r, cap) in DECODE_SHAPES.items():
+        for n_q in (1, 8):
+            args = decode_case(b, h, d, r, cap, n_q, torch.bfloat16, PADS8, g)
+            cases[f"B2 {name} n_q={n_q}"] = (lambda a=args: dk.fused_decode_attention(*a), library_call(*args))
+    w, h, d, r, window, ps = PAGED_SHAPES["flagship_cross_attention"]
+    b3_start, b3_live, b4_start, b4_live, b4_cb = paged_rows(window)
+    for kernel, pool in (("B3", "bf16"), ("B4", "int4")):
+        q, kp, vp, table, ang, scales, qbits = paged_case(w, h, d, r, window, ps, pool, torch.bfloat16, g)
+        if kernel == "B3":
+            a = (q, kp, vp, table, b3_start, b3_live, ang, window)
+            run = lambda a=a, s=scales: pk.fused_paged_decode_attention(*a, **s)
+            st, lv = b3_start, b3_live
+        else:
+            a = (q, kp, vp, table, b4_start, b4_live, b4_cb, ang, window)
+            run = lambda a=a, s=scales: rk.fused_ragged_paged_attention(*a, qbits=4, **s)
+            st, lv = rk.fold_causal_bound(b4_start, b4_live, b4_cb, window)
+        cases[f"{kernel} {pool} flagship_cross_attention"] = (
+            run, paged_library_call(q, kp, vp, table, st, lv, ang, window, scales, qbits))
+    card = card_line()
+    for name, (run, library) in cases.items():
+        emit(phase="decode_host", case=name, host_us=host_us(run), ms=time_ms(run), spin_ms=time_ms(run, spin=True),
+             library_ms=time_ms(library), library_spin_ms=time_ms(library, spin=True), card=card)
 
 # ------------------------------------------------ phase 3: flash kernels
 FLASH_SHAPES = {  # name: (batch, heads, queries, keys, head dim, left pads of the keys per row or None)
@@ -1329,6 +1418,7 @@ def main() -> int:
 
     decode_results = check_decode_kernel()
     paged_results = check_paged_kernels()
+    decode_host_times()
     flash_results = check_flash_kernel()
     ring_results = check_ring_block_kernel()
     launches = {"B2": main_path()}

@@ -17,7 +17,7 @@ ragged edge).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -25,6 +25,16 @@ from perceiver_io_torch.ops.position import apply_rope
 
 MAX_QUERIES = 8
 MAX_HEAD_DIM = 256
+
+# Split-K schedule of the decode-attention kernels (B2 here, B3/B4 in
+# paged_decode_kernel.py): each (row, head) is cut into up to S splits, one
+# block each. B2's S asks for about SPLIT_BLOCKS_PER_SM blocks on every SM
+# (more ran slower on the H100 at the flagship shapes), for at least one split
+# per MAX_SPLIT_SLOTS slots, and gives each split at least MIN_SPLIT_SLOTS
+# slots where the row has them.
+SPLIT_BLOCKS_PER_SM = 2
+MIN_SPLIT_SLOTS = 64
+MAX_SPLIT_SLOTS = 512
 
 # Kernel launches since import (or since the caller last reset it to 0). Only
 # ``_launch`` adds to it, once per launch.
@@ -123,7 +133,52 @@ def fused_decode_attention_reference(
     return o.to(q.dtype)
 
 
+def decode_splits(batch: int, heads: int, span: int, num_sms: int) -> int:
+    """Splits S per (row, head) of a B2 launch over rows whose visible slot
+    range holds at most ``span`` slots, on a card with ``num_sms`` SMs."""
+    want = max(-(-SPLIT_BLOCKS_PER_SM * num_sms // (batch * heads)), -(-span // MAX_SPLIT_SLOTS))
+    return max(1, min(want, span // MIN_SPLIT_SLOTS))
+
+
+def decode_split_rows(q_last: int, live: Optional[int], cap: int, pad_row: Sequence[bool], num_splits: int,
+                      min_slots: int = MIN_SPLIT_SLOTS) -> List[List[int]]:
+    """The slots each split block of one batch row reads, by the kernel's own
+    arithmetic (``csrc/decode_attention.cu``): the n slots [lo, hi] cut into
+    n_k = max(1, min(S, n // min_slots)) contiguous runs, pad slots
+    skipped. Each query then keeps the slots up to its causal bound."""
+    lo = 0 if live is None else max(q_last + 1 - live, 0)
+    hi = min(q_last, cap - 1)
+    n = max(hi - lo + 1, 0)
+    n_k = max(1, min(num_splits, n // min_slots))
+    return [[j for j in range(lo + k * n // n_k, lo + (k + 1) * n // n_k) if not pad_row[j]] for k in range(n_k)]
+
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_num_sms: Dict[int, int] = {}
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _num_sms:
+        _num_sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _num_sms[index]
+
+
+def split_workspace(stream: torch.cuda.Stream, floats: int, counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-K workspace (float32) and counters (int32) of a CUDA stream:
+    kept per (device, stream), so launches on one stream reuse them in order,
+    and grown on demand. The counters are zeroed once; every launch leaves
+    them at zero (the last block of each (row, head) resets its own)."""
+    key = (stream.device.index, stream.cuda_stream)
+    ws, cnt = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=stream.device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(counters, dtype=torch.int32, device=stream.device)
+    _workspaces[key] = (ws, cnt)
+    return ws, cnt
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -141,8 +196,9 @@ def _entry():
 
         fn = library("decode_attention").decode_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q k v ang pad qpos qpos_scalar live live_scalar has_live out B H n_q D cap r dtype stream
-        fn.argtypes = [p, p, p, p, p, p, i, p, i, i, p, i, i, i, i, i, i, i, p]
+        # q k v ang pad qpos qpos_scalar live live_scalar has_live out B H n_q D cap r dtype
+        # splits min_slots ws counters stream
+        fn.argtypes = [p, p, p, p, p, p, i, p, i, i, p, i, i, i, i, i, i, i, i, i, p, p, p]
         fn.restype = i
         _fn = fn
     return _fn
@@ -172,13 +228,23 @@ def _launch(q, k_cache, v_cache, rope_k, q_pos, pad_slots, live) -> torch.Tensor
 
     qpos_t = None if isinstance(q_pos, int) else _rows(q_pos, b, q.device).contiguous()
     live_t = None if live is None or isinstance(live, int) else _rows(live, b, q.device).contiguous()
+    cap = k_cache.shape[1]
+    span = cap  # the most slots a row can see; exact when q_pos and live are host ints
+    if qpos_t is None and live_t is None:
+        lo = 0 if live is None else max(q_pos + 1 - live, 0)
+        span = max(min(q_pos, cap - 1) - lo + 1, 0)
+    splits = decode_splits(b, h, span, num_sms(q.device))
+    stream = torch.cuda.current_stream(q.device)
+    ws = cnt = None
+    if splits > 1:
+        ws, cnt = split_workspace(stream, b * h * splits * n_q * (d + 2), b * h)
     out = torch.empty_like(q)
     err = _entry()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), rope_k.data_ptr(), pad_slots.data_ptr(),
         _ptr(qpos_t), q_pos if qpos_t is None else 0,
         _ptr(live_t), live if isinstance(live, int) else 0, int(live is not None),
-        out.data_ptr(), b, h, n_q, d, k_cache.shape[1], rope_k.shape[2], _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), b, h, n_q, d, cap, rope_k.shape[2], _DTYPES[q.dtype],
+        splits, MIN_SPLIT_SLOTS, _ptr(ws), _ptr(cnt), stream.cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")

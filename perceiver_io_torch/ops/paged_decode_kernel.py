@@ -33,11 +33,12 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
-from perceiver_io_torch.ops.decode_kernel import _DTYPES, MAX_HEAD_DIM, _ptr, _rows
+from perceiver_io_torch.ops.decode_kernel import (_DTYPES, MAX_HEAD_DIM, MAX_SPLIT_SLOTS, _ptr, _rows, num_sms,
+                                                  split_workspace)
 from perceiver_io_torch.ops.position import apply_rope
 
 # supported quantized-page modes (the serving engine's ``kv_quant``)
@@ -295,6 +296,52 @@ def _page_has_live(i, start, live, window: int, page_size: int):
     return (live > 0) & (((s0 >= p0) & (s0 <= p1)) | ((p0 - s0) % window < live))
 
 
+# Pages one split block may take (``kMaxPages`` in csrc/paged_attention.cu).
+MAX_SPLIT_PAGES = 64
+# Blocks a B3/B4 launch asks for on each SM. More than B2's: on the H100 at
+# the flagship shapes, one page a split ran faster than two.
+PAGED_SPLIT_BLOCKS_PER_SM = 8
+
+
+def paged_splits(rows: int, heads: int, window: int, page_size: int, num_sms: int) -> int:
+    """Splits S per (row, head) of a B3/B4 launch on a card with ``num_sms``
+    SMs: about ``PAGED_SPLIT_BLOCKS_PER_SM`` blocks an SM, one split per
+    ``MAX_SPLIT_SLOTS`` window positions, never more splits than the
+    window's pages and never more than ``MAX_SPLIT_PAGES`` pages a split."""
+    pages = -(-window // page_size)
+    want = max(-(-PAGED_SPLIT_BLOCKS_PER_SM * num_sms // (rows * heads)), -(-window // MAX_SPLIT_SLOTS))
+    return max(1, min(want, pages), -(-pages // MAX_SPLIT_PAGES))
+
+
+def paged_split_rows(start: int, live: int, window: int, page_size: int,
+                     num_splits: int) -> List[Tuple[List[int], List[int]]]:
+    """What each split block of one row (B4: after ``fold_causal_bound``)
+    reads, by the kernel's own arithmetic (``csrc/paged_attention.cu``):
+    ``(pages, positions)`` per split, the ring walk's pages (as indices into
+    the row's page table) and the physical positions whose key and value rows
+    it loads. The live ring interval touches ``count`` pages, walked in ring
+    order from the page of the oldest live position; split k of
+    n_k = max(1, min(S, count)) takes walk pages [k count / n_k,
+    (k + 1) count / n_k)."""
+    ps = page_size
+    live = min(max(live, 0), window)
+    pw = -(-window // ps)
+    a0 = count = 0
+    if live > 0:
+        s0 = (start - live) % window
+        e = s0 + live
+        a0 = s0 // ps
+        count = (e - 1) // ps - a0 + 1 if e <= window else min(pw, (pw - a0) + (e - window - 1) // ps + 1)
+    n_k = max(1, min(num_splits, count))
+    splits = []
+    for k in range(n_k):
+        j0, npg = k * count // n_k, (k + 1) * count // n_k - k * count // n_k
+        pages = [(a0 + j0 + j) % pw for j in range(npg)]
+        rows = [pi * ps + o for pi in pages for o in range(ps)]
+        splits.append((pages, [rr for rr in rows if rr < window and (rr - start) % window >= window - live]))
+    return splits
+
+
 def check_paged_args(q, kp, vp, page_table, start, live, rope_k, window, k_scale, v_scale, qbits):
     """Shapes and types both paged-attention wrappers take; raises on others."""
     if q.dim() != 4 or q.shape[2] != 1:
@@ -395,8 +442,9 @@ def _entry(name: str):
 
         fn = getattr(library("paged_attention"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q kp vp table start live [cb] ang kscale vscale out W H D P ps window r pool_kind q_dtype stream
-        fn.argtypes = [p] * (6 + (name == "ragged_paged_attention")) + [p] * 4 + [i] * 9 + [p]
+        # q kp vp table start live [cb] ang kscale vscale out W H D P ps window r pool_kind q_dtype splits
+        # ws counters stream
+        fn.argtypes = [p] * (6 + (name == "ragged_paged_attention")) + [p] * 4 + [i] * 10 + [p] * 3
         fn.restype = i
         _fns[name] = fn
     return _fns[name]
@@ -427,12 +475,17 @@ def launch(ragged: bool, q, kp, vp, page_table, start, live, causal_bound, rope_
         raise ValueError("k_scale and v_scale must be float32")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA paged-attention kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    splits = paged_splits(w, h, window, kp.shape[1], num_sms(q.device))
+    stream = torch.cuda.current_stream(q.device)
+    ws = cnt = None
+    if splits > 1:
+        ws, cnt = split_workspace(stream, w * h * splits * (d + 2), w * h)
     out = torch.empty_like(q)
     err = _entry("ragged_paged_attention" if ragged else "paged_decode_attention")(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), page_table.data_ptr(), *[t.data_ptr() for t in idx],
         rope_k.data_ptr(), _ptr(k_scale), _ptr(v_scale), out.data_ptr(),
         w, h, d, page_table.shape[1], kp.shape[1], window, rope_k.shape[2], _POOL_KINDS[kp.dtype], _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        splits, _ptr(ws), _ptr(cnt), stream.cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")

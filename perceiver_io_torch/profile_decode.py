@@ -10,14 +10,17 @@ clock, synchronised: median, min, max); one more runs under
 and the device's idle share of that window (1 - device / wall, both from the
 profiled window). ``idle_share_unprofiled_estimate`` sets the profiled device
 time against the unprofiled median wall time: an estimate, since the two come
-from different windows. Prints one JSON object. Weights are random, from a
-seed. Needs a CUDA card.
+from different windows. ``by_kernel`` gives the device ms and launches a step
+of the decode-attention kernel B2 (``decode_attention_kernel``), of the
+matrix products and of the rest. Prints one JSON object, with the card's name
+and power limit. Weights are random, from a seed. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import json
 import statistics
+import subprocess
 import time
 
 import torch
@@ -29,6 +32,34 @@ from perceiver_io_torch.models.core.perceiver_ar import CausalSequenceModel
 BATCH, PROMPT, LATENTS = 8, 768, 256
 WARMUP, STEPS, REPEATS = 4, 16, 3
 SEED = 0
+
+
+def kernel_kind(name: str, paged: str = "B3") -> str:
+    """The kernel a profiler event belongs to: B2 (``decode_attention_kernel``),
+    ``paged`` for the paged kernel (``paged_attention_kernel``, B3 or B4 by the
+    pool the caller runs), the matrix products, or the rest."""
+    if "decode_attention_kernel" in name:
+        return "B2"
+    if "paged_attention_kernel" in name:
+        return paged
+    if any(s in name.lower() for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "matrix products"
+    return "other"
+
+
+def by_kernel(kernels, steps: int, paged: str = "B3") -> dict:
+    """Device ms and launches per step (or tick) of each kernel kind."""
+    out = {}
+    for e in kernels:
+        k = out.setdefault(kernel_kind(e.key, paged), {"ms": 0.0, "launches": 0.0})
+        k["ms"] += e.self_device_time_total / 1e3 / steps
+        k["launches"] += e.count / steps
+    return out
+
+
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def main() -> None:
@@ -71,7 +102,7 @@ def main() -> None:
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     not_measured = "not measured"
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": card_line(),
         "batch": BATCH, "prompt": PROMPT, "latents": LATENTS, "steps": STEPS, "repeats": REPEATS,
         "wall_ms_per_step": {"median": wall, "min": min(walls), "max": max(walls), "all": walls},
         "profiled_wall_ms_per_step": profiled_wall,
@@ -79,6 +110,7 @@ def main() -> None:
         "device_idle_share_profiled": 1 - device_ms / profiled_wall if device_ms is not None else not_measured,
         "idle_share_unprofiled_estimate": 1 - device_ms / wall if device_ms is not None else not_measured,
         "kernel_launches_per_step": sum(e.count for e in kernels) / STEPS,
+        "by_kernel_per_step": by_kernel(kernels, STEPS),
         "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / STEPS,
                          "calls_per_step": e.count / STEPS} for e in top],
     }))

@@ -10,7 +10,11 @@ top-k 50), takes WARMUP decode ticks, times STEPS ticks on the host clock
 (the tick ends in the engine's own device sync), then runs STEPS more under
 ``torch.profiler``, which gives the device kernel time, the kernel launches
 and the device's idle share of that window (1 - device / wall, both from the
-profiled window). Prints one JSON object per mode. Weights are random, from a
+profiled window), and the device ms and launches a tick of the decode-attention
+kernels: B2 (``decode_attention_kernel``: every self-attention layer, and the
+cross-attention of the dense mode), B3 (``paged_attention_kernel`` in paged fp
+and int8 pools) and B4 (the same kernel in int4 pools). Prints one JSON object
+per mode, with the card's name and power limit. Weights are random, from a
 seed. Needs a CUDA card.
 """
 
@@ -27,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 from perceiver_io_torch.generation.generate import GenerationConfig
 from perceiver_io_torch.models.core.config import flagship_455m_config
 from perceiver_io_torch.models.core.perceiver_ar import CausalSequenceModel
+from perceiver_io_torch.profile_decode import by_kernel, card_line
 from perceiver_io_torch.serving import ServingEngine
 
 SLOTS, PROMPT = 8, 768
@@ -76,13 +81,15 @@ def main() -> None:
         not_measured = "not measured"
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]
         print(json.dumps({
-            "mode": mode, "device": torch.cuda.get_device_name(0), "slots": SLOTS, "prompt": PROMPT,
+            "mode": mode, "device": torch.cuda.get_device_name(0), "nvidia_smi": card_line(), "slots": SLOTS,
+            "prompt": PROMPT,
             "steps": STEPS, "first_tick_with_admissions_ms": admit_s * 1e3,
             "wall_ms_per_tick": {"median": statistics.median(walls), "min": min(walls), "max": max(walls)},
             "profiled_wall_ms_per_tick": profiled_wall,
             "device_kernel_ms_per_tick": device_ms if device_ms is not None else not_measured,
             "device_idle_share_profiled": 1 - device_ms / profiled_wall if device_ms is not None else not_measured,
             "kernel_launches_per_tick": sum(e.count for e in kernels) / STEPS,
+            "by_kernel_per_tick": by_kernel(kernels, STEPS, "B4" if kw.get("kv_quant") == "int4" else "B3"),
             "top_kernels": [{"name": e.key[:90], "ms_per_tick": e.self_device_time_total / 1e3 / STEPS,
                              "calls_per_tick": e.count / STEPS} for e in top],
         }), flush=True)

@@ -204,6 +204,170 @@ def test_paged_engine_on_the_card_matches_the_cpu(card, kv_quant):
     assert b2 >= 2 * ticks and (b4 if kv_quant == "int4" else b3) == ticks and (b3 if kv_quant == "int4" else b4) == 0
 
 
+def _decode_split_case(dev, dtype, n_q, cap=2048, seed=0):
+    """Few (row, head) pairs over a long cache, so that B2 takes many splits:
+    row 0 has pad slots across whole splits, row 1 is all padding, row 2's
+    last query sits at slot 3 (with n_q = 8 its first queries see nothing)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    b, h, d, r = 3, 1, 64, 64
+    q = (torch.randn(b, h, n_q, d, generator=g, device=dev) * d**-0.5).to(dtype)
+    k = torch.randn(b, cap, h * d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, cap, h * d, generator=g, device=dev).to(dtype)
+    ang = torch.rand(b, cap, r // 2, generator=g, device=dev).mul(cap).repeat_interleave(2, -1)
+    pad = torch.zeros(b, cap, dtype=torch.bool, device=dev)
+    pad[0, 600:900] = True
+    pad[1] = True
+    q_pos = torch.tensor([cap - 1, cap - 1, 3], dtype=torch.int32, device=dev)
+    return q, k, v, ang, q_pos, pad
+
+
+def _paged_split_case(dev, pool, q_dtype, seed=0):
+    """Few (row, head) pairs over a window of many small pages, so that B3
+    and B4 take many splits: full, short, empty and wrapped rows for B3; a
+    decode item, latent-finish items and two empty items for B4."""
+    window = 1000
+    inputs = _paged_inputs(dev, pool, q_dtype, w=5, h=2, window=window, ps=16, seed=seed)
+    start = torch.tensor([0, 999, 17, 500, 3], dtype=torch.int32, device=dev)
+    live = torch.tensor([1000, 17, 0, 1000, 900], dtype=torch.int32, device=dev)
+    cb = torch.tensor([999, 999, 999, 600, 101], dtype=torch.int32, device=dev)
+    return inputs, window, start, live, cb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q", [1, 8])
+def test_decode_kernel_many_splits(card, dtype, n_q):
+    """B2 split-K at 32 splits a (row, head): splits inside the padding and
+    queries that see nothing give exact zeros, not NaN; two runs give the
+    same bits."""
+    q, k, v, ang, q_pos, pad = _decode_split_case(card, dtype, n_q)
+    assert dk.decode_splits(3, 1, k.shape[1], dk.num_sms(card)) >= 16
+    want = dk.fused_decode_attention_reference(q, k, v, ang, q_pos, pad)
+    got = dk.fused_decode_attention(q, k, v, ang, q_pos, pad)
+    again = dk.fused_decode_attention(q, k, v, ang, q_pos, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got[1] == 0).all() and (got[2, :, : max(n_q - 4, 0)] == 0).all()
+    atol = 1e-4 if dtype == torch.float32 else 0.03 * want.float().pow(2).mean().sqrt().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("kernel,pool,q_dtype", [("B3", "f32", torch.float32), ("B3", "int8", torch.bfloat16),
+                                                 ("B4", "int4", torch.bfloat16), ("B4", "bf16", torch.bfloat16)])
+def test_paged_kernels_many_splits(card, kernel, pool, q_dtype):
+    """B3 and B4 split-K at 27 splits a (row, head) over 16-row pages: rows
+    and items that see nothing are exact zeros; two runs give the same bits."""
+    (q, kp, vp, table, ang, scales, qbits), window, start, live, cb = _paged_split_case(card, pool, q_dtype)
+    assert pk.paged_splits(5, 2, window, 16, dk.num_sms(card)) >= 16
+    if kernel == "B3":
+        args = (q, kp, vp, table, start, live, ang, window)
+        want = pk.fused_paged_decode_attention_reference(*args, **scales)
+        run = lambda: pk.fused_paged_decode_attention(*args, **scales)
+        empty = live == 0
+    else:
+        args = (q, kp, vp, table, start, live, cb, ang, window)
+        want = rk.fused_ragged_paged_attention_reference(*args, qbits=qbits, **scales)
+        run = lambda: rk.fused_ragged_paged_attention(*args, qbits=qbits, **scales)
+        empty = rk.fold_causal_bound(start, live, cb, window)[1] == 0
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert empty.any() and (got[empty] == 0).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=_limit(q_dtype, pool, want), rtol=0)
+
+
+def _assert_split_records(rec, splits_per_row):
+    """``rec`` (rows, heads, S, D + 2) holds the workspace records of a q = 0
+    launch, filled with NaN before it: every score is 0, so split k of a
+    row with n_k > 1 splits holds m = 0 and l = the count of slots it saw
+    (m = -inf, l = 0 if none); a row with one split and the blocks past a
+    row's n_k write no record. ``splits_per_row[i]`` is the Python mirror's
+    slots of each split of row i."""
+    for i, splits in enumerate(splits_per_row):
+        n_k = len(splits) if len(splits) > 1 else 0
+        for k in range(rec.shape[2]):
+            got = rec[i, :, k, :2]
+            if k >= n_k:
+                assert got.isnan().all(), (i, k)
+                continue
+            want_m = 0.0 if splits[k] else float("-inf")
+            assert (got[:, 0] == want_m).all() and (got[:, 1] == len(splits[k])).all(), (i, k, got, len(splits[k]))
+
+
+@pytest.mark.parametrize("live", [None, (2048, 1500, 4)])
+def test_decode_split_rows_match_the_kernel(card, live):
+    """B2's split ranges as the kernel computes them (read back from its
+    workspace) equal those of their Python mirror, decode_split_rows, which
+    the CPU tests check."""
+    q, k, v, ang, q_pos, pad = _decode_split_case(card, torch.float32, 1)
+    q.zero_()
+    live_t = None if live is None else torch.tensor(live, dtype=torch.int32, device=card)
+    b, h, _, d = q.shape
+    cap = k.shape[1]
+    splits = dk.decode_splits(b, h, cap, dk.num_sms(card))  # q_pos is a tensor: the wrapper's span is cap
+    assert splits >= 16
+    size = b * h * splits * (d + 2)
+    ws, _ = dk.split_workspace(torch.cuda.current_stream(card), size, b * h)
+    ws.fill_(float("nan"))
+    dk.fused_decode_attention(q, k, v, ang, q_pos, pad, live_t)
+    rec = ws[:size].view(b, h, splits, d + 2).cpu()
+    mirror = [dk.decode_split_rows(int(q_pos[i]), None if live is None else live[i], cap, pad[i].tolist(), splits)
+              for i in range(b)]
+    assert len(mirror[0]) == splits and len(mirror[2]) == 1  # row 2 sees 4 slots: one split, no record
+    _assert_split_records(rec, mirror)
+
+
+@pytest.mark.parametrize("kernel,pool", [("B3", "f32"), ("B4", "int4")])
+def test_paged_split_rows_match_the_kernel(card, kernel, pool):
+    """B3's and B4's split ranges as the kernel computes them (read back from
+    its workspace) equal those of their Python mirror, paged_split_rows,
+    which the CPU tests check."""
+    (q, kp, vp, table, ang, scales, qbits), window, start, live, cb = _paged_split_case(card, pool, torch.float32)
+    q.zero_()
+    w, h, _, d = q.shape
+    splits = pk.paged_splits(w, h, window, 16, dk.num_sms(card))
+    size = w * h * splits * (d + 2)
+    ws, _ = dk.split_workspace(torch.cuda.current_stream(card), size, w * h)
+    ws.fill_(float("nan"))
+    if kernel == "B3":
+        pk.fused_paged_decode_attention(q, kp, vp, table, start, live, ang, window, **scales)
+        eff_start, eff_live = start, live
+    else:
+        rk.fused_ragged_paged_attention(q, kp, vp, table, start, live, cb, ang, window, qbits=qbits, **scales)
+        eff_start, eff_live = rk.fold_causal_bound(start, live, cb, window)
+    rec = ws[:size].view(w, h, splits, d + 2).cpu()
+    mirror = [[rows for _, rows in pk.paged_split_rows(int(s0), int(lv), window, 16, splits)]
+              for s0, lv in zip(eff_start.tolist(), eff_live.tolist())]
+    assert max(len(m) for m in mirror) == splits
+    _assert_split_records(rec, mirror)
+
+
+def test_split_workspace_is_reused_across_shapes(card):
+    """Calls of different shapes in a row on one stream share the split
+    workspace and its counters (grown on demand, left at zero by every
+    launch): B2 small, B2 large, B3, B4, then B2 small again, each against
+    its plain version."""
+    calls = []  # (launch, plain output, limit)
+    for n_q, cap in ((1, 512), (8, 2048)):
+        args = _decode_split_case(card, torch.float32, n_q, cap=cap, seed=cap)
+        calls.append((lambda a=args: dk.fused_decode_attention(*a), dk.fused_decode_attention_reference(*args), 1e-4))
+    (q, kp, vp, table, ang, scales, _), window, start, live, cb = _paged_split_case(card, "f32", torch.float32)
+    args3 = (q, kp, vp, table, start, live, ang, window)
+    calls.append((lambda: pk.fused_paged_decode_attention(*args3, **scales),
+                  pk.fused_paged_decode_attention_reference(*args3, **scales), 1e-4))
+    (q, kp, vp, table, ang, sc4, qbits), _, _, _, _ = _paged_split_case(card, "int4", torch.float32, seed=1)
+    args4 = (q, kp, vp, table, start, live, cb, ang, window)
+    want4 = rk.fused_ragged_paged_attention_reference(*args4, qbits=qbits, **sc4)
+    calls.append((lambda: rk.fused_ragged_paged_attention(*args4, qbits=qbits, **sc4), want4,
+                  _limit(torch.float32, "int4", want4)))
+    calls.append(calls[0])
+    outs = [run() for run, _, _ in calls]
+    torch.cuda.synchronize()
+    for got, (_, want, atol) in zip(outs, calls):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    key = (torch.cuda.current_device(), torch.cuda.current_stream(card).cuda_stream)
+    assert (dk._workspaces[key][1] == 0).all()
+
+
 def _flash_limit(want, dtype):
     """1e-4 in float32; in bfloat16 0.03 of the plain tensor's RMS plus one
     bfloat16 step of the element (both sides round a float32 result apart),
