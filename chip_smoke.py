@@ -56,10 +56,19 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
   5. serving        the flagship engine in bf16, 8 slots, a seeded stream of 32
                     requests (prompts 64-1024, 16-128 new tokens, half
                     sampled) in four pool modes (dense, paged fp, int8, int4),
-                    REPEATS runs each: decode tokens/s, ms per tick, TTFT and
-                    peak pages; every decode tick launches B2 once per layer
+                    and paged_chunked_prefix: page 128, chunks of 256, the
+                    prefix cache, 2 prompts in flight, over chat_stream (32
+                    requests on four shared 256-token system prefixes,
+                    768-896 tokens in all), REPEATS runs each: decode
+                    tokens/s, ms per tick, TTFT and peak pages, ticks, graph
+                    replays and captures, and for the chunked mode prefix
+                    hits, shared pages in use and chunks (both > 0); each
+                    tick's decode is one CUDA graph, captured once per
+                    engine, whose every replay launches B2 once per layer
                     plus one cross-attention kernel (B2, B3 or B4); greedy
-                    tokens identical across repeats
+                    tokens identical across repeats and to an eager engine
+                    (cuda_graph=False) over the same stream, whose first
+                    decoding tick's logits lie within 0.03 x their RMS
   6. train          the flagship train step (20 layers, bf16 over f32
                     parameters, batch 16, AdamW with clipping, activation
                     checkpointing with the dots policy): REPEATS windows of
@@ -85,6 +94,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     and int4 pools: identical tokens, a tick's logits from
                     the same state within 1e-3, and the first tick's within
                     1e-3 in fp and int8 pools (see card_vs_cpu_serving);
+                    the chunked and prefix path (paged_chunked_prefix's
+                    options, 4 slots, 8 requests): identical tokens, equal
+                    prefix hits and chunks, every tick's logits within 1e-3;
                     then training at flagship width with 2 layers in f32:
                     loss within 1e-5 relative, gradients within 1e-3 x their
                     RMS, 3 AdamW steps' losses within 1e-4 relative; the
@@ -789,35 +801,55 @@ def main_path():
 
 
 # -------------------------------------------------------- phase 5: serving
-SERVING_MODES = {  # name: (kv_page_size, kv_quant, the cross-attention kernel's module)
-    "dense": (None, None, dk),
-    "paged_fp": (128, None, pk),
-    "paged_int8": (128, "int8", pk),
-    "paged_int4": (128, "int4", rk),
+CHAT = dict(kv_page_size=128, prefill_chunk_tokens=256, prefix_cache=True, max_prefill_slots=2)
+SERVING_MODES = {  # name: (the engine's options, the cross-attention kernel's module)
+    "dense": ({}, dk),
+    "paged_fp": (dict(kv_page_size=128), pk),
+    "paged_int8": (dict(kv_page_size=128, kv_quant="int8"), pk),
+    "paged_int4": (dict(kv_page_size=128, kv_quant="int4"), rk),
+    "paged_chunked_prefix": (CHAT, pk),
 }
+
+
+def _sampling(i):
+    """Even requests greedy, odd ones sampled at temperature 0.8 and top-k 50."""
+    return dict(do_sample=bool(i % 2), temperature=0.8 if i % 2 else 1.0, top_k=50 if i % 2 else None)
 
 
 def request_stream(cfg, n=32):
     """The fixed, seeded stream: prompts of 64-1024 tokens (so both admission
     paths run: shorter than 512 latents, the bucket prefill; longer, the
-    split path), 16-128 new tokens, even requests greedy, odd ones sampled
-    at temperature 0.8 and top-k 50 with their own seeds."""
+    split path), 16-128 new tokens, half of them sampled with their own
+    seeds."""
     rs = np.random.RandomState(SEED + 4)
     stream = []
     for i in range(n):
         prompt = rs.randint(1, cfg.vocab_size, rs.randint(64, 1025)).tolist()
-        config = GenerationConfig(max_new_tokens=int(rs.randint(16, 129)), do_sample=bool(i % 2),
-                                  temperature=0.8 if i % 2 else 1.0, top_k=50 if i % 2 else None)
+        config = GenerationConfig(max_new_tokens=int(rs.randint(16, 129)), **_sampling(i))
         stream.append((prompt, config, SEED + i))
     return stream
 
 
-def serve(model, mode, stream, num_slots=8):
+def chat_stream(cfg, n=32):
+    """Chat serving with shared system prompts: four 256-token system
+    prefixes (two pages each), each request one of them and its own turn,
+    768-896 tokens in all (so the shared pages lie below the latent
+    boundary), 16-128 new tokens (prompt and budget within the window: no
+    request wraps, so every one may share), half of them sampled."""
+    rs = np.random.RandomState(SEED + 6)
+    systems = [rs.randint(1, cfg.vocab_size, 256).tolist() for _ in range(4)]
+    stream = []
+    for i in range(n):
+        turn = rs.randint(1, cfg.vocab_size, int(rs.randint(768, 897)) - 256).tolist()
+        config = GenerationConfig(max_new_tokens=int(rs.randint(16, 129)), **_sampling(i))
+        stream.append((systems[i % 4] + turn, config, SEED + i))
+    return stream
+
+
+def serve(model, mode, stream, num_slots=8, cuda_graph=True):
     """One engine run over ``stream``; returns the engine, the handles and the
     counters of the three kernels, zeroed just before the run."""
-    page, quant, _ = SERVING_MODES[mode]
-    kw = {} if page is None else dict(kv_page_size=page, kv_quant=quant)
-    engine = ServingEngine(model, num_slots=num_slots, **kw)
+    engine = ServingEngine(model, num_slots=num_slots, cuda_graph=cuda_graph, **SERVING_MODES[mode][0])
     torch.cuda.synchronize()
     dk.launches = pk.launches = rk.launches = 0
     handles = [engine.submit(p, config=c, seed=seed) for p, c, seed in stream]
@@ -826,19 +858,44 @@ def serve(model, mode, stream, num_slots=8):
     return engine, handles, {"B2": dk.launches, "B3": pk.launches, "B4": rk.launches}
 
 
+def graph_vs_eager(model, mode, stream):
+    """The same stream through a graph engine and an eager one, ticked in
+    turns: the first decoding tick's next logits (bf16: within 0.03 x the
+    eager tensor's RMS, over the slots that decode) and every greedy token
+    (identical). Returns the error and its limit, the greedy tokens, and
+    each engine's mean ms a decoding tick."""
+    engines = [ServingEngine(model, num_slots=8, cuda_graph=graph, **SERVING_MODES[mode][0]) for graph in (True, False)]
+    handles = [[e.submit(p, config=c, seed=seed) for p, c, seed in stream] for e in engines]
+    first = None
+    work = [True, True]
+    while any(work):
+        work = [e.step() if w else False for e, w in zip(engines, work)]
+        if first is None and engines[1].metrics.decode_steps:
+            active = engines[1]._state.active
+            got, want = (e._state.next_logits[active].float() for e in engines)
+            first = ((got - want).abs().max().item(), BF16_RMS_FRACTION * want.pow(2).mean().sqrt().item())
+    if engines[0].metrics.decode_steps != engines[1].metrics.decode_steps:
+        raise AssertionError(f"serving {mode}: graph and eager engines ticked apart")
+    greedy = [[h.result().tolist() for h in hs if not h.config.do_sample] for hs in handles]
+    return first, greedy, [1e3 * e.metrics.snapshot()["decode_step_s"]["mean"] for e in engines]
+
+
 def serving():
     cfg = flagship_455m_config()
     layers = cfg.num_self_attention_layers
     model = CausalSequenceModel(cfg, device=DEVICE, dtype=torch.bfloat16, param_dtype=torch.bfloat16, seed=SEED)
-    stream = request_stream(cfg)
     totals = {"B2": 0, "B3": 0, "B4": 0}
-    for mode, (_, _, ca_kernel) in SERVING_MODES.items():
+    for mode, (options, ca_kernel) in SERVING_MODES.items():
+        stream = chat_stream(cfg) if mode == "paged_chunked_prefix" else request_stream(cfg)
         serve(model, mode, stream[:3])  # warm-up: cuBLAS handles, the kernel libraries, the allocator
         runs, greedy = [], []
         for _ in range(REPEATS):
             engine, handles, counts = serve(model, mode, stream)
             snap = engine.metrics.snapshot()
             ticks = snap["decode_steps"]
+            if engine.decode_compilations != 1 or engine.total_compilations != 1 or engine.graph_replays != ticks:
+                raise AssertionError(f"serving {mode}: {engine.total_compilations} captures, {engine.graph_replays} "
+                                     f"replays for {ticks} decode ticks (one capture, one replay a tick)")
             expected = {"B2": ticks * (layers + (ca_kernel is dk)), "B3": ticks * (ca_kernel is pk),
                         "B4": ticks * (ca_kernel is rk)}
             if counts != expected:
@@ -850,20 +907,37 @@ def serving():
             for k in totals:
                 totals[k] += counts[k]
             greedy.append([h.result().tolist() for h in handles if not h.config.do_sample])
-            pool = snap["page_pool"]
+            pool, cache, chunks = snap["page_pool"], snap["prefix_cache"], snap["chunked_prefill"]
             runs.append(dict(tokens_per_s=snap["decode_tokens_per_s"], ms_per_tick=1e3 * snap["decode_step_s"]["mean"],
                              ttft_p50_ms=1e3 * snap["ttft_s"]["p50"], ttft_p95_ms=1e3 * snap["ttft_s"]["p95"],
                              peak_pages=None if pool is None else pool["peak_pages_in_use"], ticks=ticks,
-                             tokens=snap["tokens_generated"]))
+                             tokens=snap["tokens_generated"], replays=engine.graph_replays,
+                             captures=engine.total_compilations,
+                             dispatching_ticks=None if snap["ragged_tick"] is None else snap["ragged_tick"]["ticks"],
+                             prefix_hits=None if cache is None else cache["hits"],
+                             peak_shared_pages_in_use=None if cache is None else cache["peak_shared_pages_in_use"],
+                             chunks=None if chunks is None else chunks["chunks_dispatched"]))
         identical = all(g == greedy[0] for g in greedy)
-        emit(phase="serving", mode=mode, slots=8, requests=len(stream), repeats=REPEATS, launches_per_run=counts,
-             launches_per_tick={k: v / runs[-1]["ticks"] for k, v in counts.items()},
+        (first_err, first_limit), (graph_greedy, eager_greedy), tick_ms = graph_vs_eager(model, mode, stream)
+        emit(phase="serving", mode=mode, options=options, slots=8, requests=len(stream), repeats=REPEATS,
+             launches_per_run=counts, launches_per_tick={k: v / runs[-1]["ticks"] for k, v in counts.items()},
              greedy_tokens_identical_across_repeats=identical,
+             graph_vs_eager={"greedy_tokens_identical": graph_greedy == eager_greedy == greedy[0],
+                             "first_tick_max_logit_err": first_err, "limit": first_limit,
+                             "ms_per_tick_in_turns": {"graph": tick_ms[0], "eager": tick_ms[1]}},
              **{k: spread([r[k] for r in runs]) if runs[0][k] is not None else None
-                for k in ("tokens_per_s", "ms_per_tick", "ttft_p50_ms", "ttft_p95_ms", "peak_pages")},
-             ticks=runs[-1]["ticks"], tokens=runs[-1]["tokens"])
+                for k in ("tokens_per_s", "ms_per_tick", "ttft_p50_ms", "ttft_p95_ms", "peak_pages", "ticks",
+                          "replays", "captures", "dispatching_ticks", "prefix_hits", "peak_shared_pages_in_use",
+                          "chunks")},
+             tokens=runs[-1]["tokens"])
         if not identical:
             raise AssertionError(f"serving {mode}: greedy tokens differ between repeats")
+        if not graph_greedy == eager_greedy == greedy[0] or not first_err <= first_limit:
+            raise AssertionError(f"serving {mode}: the graph and eager engines disagree: greedy tokens identical "
+                                 f"{graph_greedy == eager_greedy == greedy[0]}, first decoding tick's logits "
+                                 f"{first_err} (limit {first_limit})")
+        if mode == "paged_chunked_prefix" and not all(r["prefix_hits"] > 0 and r["chunks"] > 0 for r in runs):
+            raise AssertionError(f"serving {mode}: no prefix hit or no chunk: {runs}")
     del model
     torch.cuda.empty_cache()
     return totals
@@ -958,6 +1032,49 @@ def card_vs_cpu_serving():
         if not same or not same_state_err <= 1e-3 or (held and not first_err <= 1e-3):
             raise AssertionError(f"serving card vs CPU ({quant}): tokens identical: {same}, logit error from the "
                                  f"same state {same_state_err}, first tick {first_err} (atol 1e-3)")
+
+
+def card_vs_cpu_chunked():
+    """The chunked and prefix path at flagship width with 2 layers in float32
+    (TF32 off): one engine on the card (decode on its CUDA graph) and one on
+    the CPU, 4 slots, page 128, chunks of 256, the prefix cache, 2 prompts
+    in flight, ticked in turns over the same 8 greedy requests (two 256-token
+    system prefixes, 768-896 tokens in all): identical tokens, the same
+    prefix hits and chunks (both > 0), and after every tick the next logits
+    of the slots that decode within 1e-3 of the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(flagship_455m_config(), num_self_attention_layers=2)
+    cpu = CausalSequenceModel(cfg, device="cpu", param_dtype=torch.float32, seed=SEED)
+    gpu = CausalSequenceModel(cfg, device=DEVICE, param_dtype=torch.float32, seed=SEED + 99)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(SEED + 7)
+    systems = [rs.randint(1, cfg.vocab_size, 256).tolist() for _ in range(2)]
+    requests = [(systems[i % 2] + rs.randint(1, cfg.vocab_size, int(rs.randint(768, 897)) - 256).tolist(),
+                 int(rs.randint(6, 13))) for i in range(8)]
+    engines = [ServingEngine(m, num_slots=4, **CHAT) for m in (gpu, cpu)]
+    handles = [[e.submit(p, max_new_tokens=m) for p, m in requests] for e in engines]
+    max_err, ticks, work = 0.0, 0, [True, True]
+    while any(work):
+        work = [e.step() for e in engines]
+        if work[0] != work[1]:
+            raise AssertionError("chunked card vs CPU: the engines ticked apart")
+        active = engines[1]._state.active
+        if active.any():
+            err = (engines[0]._state.next_logits.cpu()[active] - engines[1]._state.next_logits[active]).abs().max()
+            max_err = max(max_err, err.item())
+        ticks += 1
+    tokens = [[h.result().tolist() for h in hs] for hs in handles]
+    snaps = [e.metrics.snapshot() for e in engines]
+    hits = [s["prefix_cache"]["hits"] for s in snaps]
+    chunks = [s["chunked_prefill"]["chunks_dispatched"] for s in snaps]
+    same = tokens[0] == tokens[1]
+    emit(phase="card_vs_cpu", path="serving_chunked_prefix", ticks=ticks, max_logit_err=max_err, atol=1e-3,
+         tokens_identical=same, tokens=sum(map(len, tokens[0])), prefix_hits=hits, chunks=chunks,
+         graph_replays=engines[0].graph_replays)
+    if not same or not max_err <= 1e-3 or hits[0] != hits[1] or chunks[0] != chunks[1] or not (hits[0] and chunks[0]):
+        raise AssertionError(f"chunked card vs CPU: tokens identical {same}, logit error {max_err} (atol 1e-3), "
+                             f"prefix hits {hits}, chunks {chunks}")
 
 
 # -------------------------------------------------------- phase 7: training
@@ -1438,6 +1555,7 @@ def main() -> int:
         raise AssertionError("the sequence-parallel training path never launched B5")
     card_vs_cpu()
     card_vs_cpu_serving()
+    card_vs_cpu_chunked()
     card_vs_cpu_train()
     sp_lr_check()
     card_vs_card_sp()

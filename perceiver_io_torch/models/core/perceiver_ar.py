@@ -59,7 +59,9 @@ class PerceiverARCache:
     ``shift``: (B, 1) int32 left-pad count.
     ``live``: (B,) int32 live (non-pad) entries per row; the live region is the
         tail ``[ca.length - live, ca.length)`` of the valid slots.
-    Methods update the state in place and return it.
+    Methods update the state in place and return it; a decode step writes
+    into the tensors the cache holds and never replaces one, so a CUDA graph
+    captured over it replays against the same buffers.
     """
 
     ca: KVCache
@@ -413,7 +415,7 @@ class PerceiverAR(nn.Module):
 
         if n == 1:
             if cache.ca.length >= ca_cap:  # roll the pad-slot mask with the cache
-                cache.pad_slots = cache.pad_slots.roll(-1, dims=1)
+                cache.pad_slots.copy_(cache.pad_slots.roll(-1, dims=1))
             write_pos = min(cache.ca.length, ca_cap - 1)
         else:
             write_pos = cache.ca.length
@@ -425,7 +427,7 @@ class PerceiverAR(nn.Module):
         # remain, a live token) out of the head: live saturates at capacity
         live = (cache.live + n).clamp_max(ca_cap)
 
-        x_latent, ca_cache = self.cross_attention(
+        x_latent, _ = self.cross_attention(
             x_emb, x_kv_prefix=x_emb[:, :0], pad_mask=cache.pad_slots, rope_q=frq_q, rope_k=rope_k_ca,
             kv_cache=cache.ca, kv_live=live,
         )
@@ -434,8 +436,8 @@ class PerceiverAR(nn.Module):
         sa_len_after = min(cache.sa.length[0] + n, sa_cap)
         sa_slot_pos = (n_after - sa_len_after + torch.arange(sa_cap, device=dev)[None, :] - cache.shift).clamp_min(0)
         rope_k_sa = frequency_position_encoding(sa_slot_pos, rot)
-        x_latent, sa_cache = self.self_attention(x_latent, rope_q=frq_q, rope_k=rope_k_sa, kv_cache=cache.sa)
-        cache.ca, cache.sa, cache.live = ca_cache, sa_cache, live
+        x_latent, _ = self.self_attention(x_latent, rope_q=frq_q, rope_k=rope_k_sa, kv_cache=cache.sa)
+        cache.live.copy_(live)
         return x_latent, cache
 
     @torch.no_grad()
@@ -469,7 +471,7 @@ class PerceiverAR(nn.Module):
         logical = (torch.arange(n_phys, device=dev)[None, :] - start_after[:, None]) % window
         rope_k_ca = frequency_position_encoding((logical - cache.shift).clamp_min(0), rot)
 
-        x_latent, ca_cache = self.cross_attention(
+        x_latent, _ = self.cross_attention(
             x_emb, x_kv_prefix=x_emb[:, :0], rope_q=frq_q, rope_k=rope_k_ca, kv_cache=cache.ca, kv_live=live,
         )
         # dense self-attention over the latents, as decode_block n=1 with a full window
@@ -477,8 +479,8 @@ class PerceiverAR(nn.Module):
         sa_len_after = min(cache.sa.length[0] + 1, sa_cap)
         sa_slot_pos = (window - sa_len_after + torch.arange(sa_cap, device=dev)[None, :] - cache.shift).clamp_min(0)
         rope_k_sa = frequency_position_encoding(sa_slot_pos, rot)
-        x_latent, sa_cache = self.self_attention(x_latent, rope_q=frq_q, rope_k=rope_k_sa, kv_cache=cache.sa)
-        cache.ca, cache.sa, cache.live = ca_cache, sa_cache, live
+        x_latent, _ = self.self_attention(x_latent, rope_q=frq_q, rope_k=rope_k_sa, kv_cache=cache.sa)
+        cache.live.copy_(live)
         return x_latent, cache
 
     # ---------------------------------------------------------- split prefill

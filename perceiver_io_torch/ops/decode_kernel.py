@@ -181,6 +181,14 @@ def split_workspace(stream: torch.cuda.Stream, floats: int, counters: int) -> Tu
     return ws, cnt
 
 
+def claim_split_workspace(stream: torch.cuda.Stream) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Take a stream's workspace and counters out of the per-stream table;
+    the caller keeps them alive. A CUDA graph captured on the stream points
+    at them: a later call on that stream then gets a workspace of its own
+    instead of growing (and so freeing) the graph's."""
+    return _workspaces.pop((stream.device.index, stream.cuda_stream), None)
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 

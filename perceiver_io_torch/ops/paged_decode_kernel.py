@@ -183,7 +183,7 @@ class PagedKVCache:
                 pages[rows, offs] = _quantize_values(row[:, None, :], new, d, qmax)[:, 0]
                 pool[page_ids] = _pack_codes(pages, self.qbits)
                 scales[page_ids] = new
-        self.start = (self.start + 1) % self.window
+        self.start.copy_((self.start + 1) % self.window)  # in place: a captured graph replays this buffer
         return self
 
     def write_rows(self, table_row: torch.Tensor, offset: int, count: int, k_rows: torch.Tensor,

@@ -595,3 +595,74 @@ def test_ring_on_the_card_matches_the_cpu(card):
     assert abs(got - want) <= 1e-5 * abs(want)
     for a, b in zip(got_grads, want_grads):
         assert (a.cpu() - b).abs().max() <= 1e-3 * b.pow(2).mean().sqrt().clamp_min(1e-30)
+
+
+GRAPH_POOLS = [(None, None), (5, None), (5, "int8"), (5, "int4")]
+GRAPH_IDS = ["dense", "paged-fp", "paged-int8", "paged-int4"]
+
+
+def _graph_model(card):
+    """More latents than decode attention's 8 queries: prefills and finishes
+    take the masked softmax, so every B2-B4 launch is a decode's."""
+    cfg = CausalSequenceModelConfig(vocab_size=64, max_seq_len=32, max_latents=12, num_channels=32, num_heads=2,
+                                    num_self_attention_layers=2, abs_pos_emb=False, output_norm=True,
+                                    num_self_attention_rotary_layers=-1, init_scale=0.5)
+    return cfg, CausalSequenceModel(cfg, device=card, seed=4)
+
+
+@pytest.mark.parametrize("page,quant", GRAPH_POOLS, ids=GRAPH_IDS)
+def test_graph_replay_equals_eager_decode(card, page, quant):
+    """16 ticks of the same requests (greedy and sampled, admitted between
+    ticks) on a captured-graph engine and on an eager one, in float32: the
+    same tokens and the same next logits after every tick (atol 1e-5)."""
+    _, model = _graph_model(card)
+    kw = {} if page is None else dict(kv_page_size=page, kv_quant=quant)
+    engines = [ServingEngine(model, num_slots=3, cuda_graph=graph, **kw) for graph in (True, False)]
+    assert [e.decode_compilations for e in engines] == [1, 0]
+    requests = [(list(range(5, 19)), dict(max_new_tokens=9)),
+                (list(range(20, 40)), dict(max_new_tokens=12, do_sample=True, temperature=0.8, top_k=20)),
+                ([3, 1, 4], dict(max_new_tokens=5)), (list(range(40, 56)), dict(max_new_tokens=6))]
+    handles = [[], []]
+    for tick in range(16):
+        for i, engine in enumerate(engines):
+            if tick < len(requests):
+                prompt, options = requests[tick]
+                handles[i].append(engine.submit(prompt, seed=tick, **options))
+            engine.step()
+        graph, eager = (e._state.next_logits for e in engines)
+        torch.testing.assert_close(graph, eager, atol=1e-5, rtol=0)
+    tokens = [[h.result().tolist() for h in hs] for hs in handles]
+    assert tokens[0] == tokens[1] and sum(map(len, tokens[0])) > 16
+    assert engines[0].graph_replays == engines[0].metrics.snapshot()["decode_steps"] > 0
+
+
+@pytest.mark.parametrize("page,quant", GRAPH_POOLS, ids=GRAPH_IDS)
+def test_graph_captured_once_through_churn_with_exact_launch_counts(card, page, quant):
+    """Admissions (classic, split, chunked, prefix hits), evictions and
+    chunk ticks never capture again; every replay adds the launches its
+    capture recorded (B2 once a layer, plus B2, B3 or B4 for the
+    cross-attention), so the counters equal replays x launches a capture."""
+    cfg, model = _graph_model(card)
+    kw = {} if page is None else dict(kv_page_size=page, kv_quant=quant, prefill_chunk_tokens=page,
+                                      prefix_cache=True, max_prefill_slots=2)
+    engine = ServingEngine(model, num_slots=3, **kw)
+    layers = cfg.num_self_attention_layers
+    cross = "B2" if page is None else ("B4" if quant == "int4" else "B3")
+    per_capture = {"B2": layers + (cross == "B2"), "B3": int(cross == "B3"), "B4": int(cross == "B4")}
+    assert engine._graph_launches == per_capture
+    torch.cuda.synchronize()
+    dk.launches = pk.launches = rk.launches = 0
+    preamble = list(range(30, 48))
+    handles = [engine.submit(preamble + [i] * (1 + i % 5), max_new_tokens=2 + i % 5) for i in range(9)]
+    handles.append(engine.submit([1, 2], max_new_tokens=3))
+    engine.run_until_drained(max_steps=300)
+    assert all(h.ok for h in handles)
+    snap = engine.metrics.snapshot()
+    replays = engine.graph_replays
+    assert engine.decode_compilations == engine.total_compilations == 1
+    assert replays == snap["decode_steps"]
+    assert {"B2": dk.launches, "B3": pk.launches, "B4": rk.launches} == {
+        k: replays * v for k, v in per_capture.items()}
+    if page is not None:
+        assert snap["chunked_prefill"]["chunks_dispatched"] > len(handles)
+        assert snap["prefix_cache"]["hits"] > 0
