@@ -13,7 +13,9 @@ port's CPU run and the ring against the plain path.
 Phases (each prints JSON lines; any failure raises and the exit code is not 0):
   1. device         CUDA with compute capability (9, 0); the card's name and power limit
   2. build          one nvcc per perceiver_io_torch/csrc/*.cu, all started together:
-                    seconds and ptxas lines per source
+                    seconds and ptxas lines per source; B1a wide's registers
+                    and spills by instantiation (a spill fails the run) and
+                    the count of ptxas notes that it serialised wgmma
   3. kernel_check   each kernel vs its plain version at the main paths'
                     shapes: f32 max error 1e-4; bf16 and quantized pools 0.03 x
                     the RMS of the plain output; times, the least time the
@@ -43,8 +45,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     (ring_block_forward, ring attention's fully visible
                     blocks: B1a's entry, in bf16 with P in two terms) at
                     clm_8k's cross- and
-                    self-attention blocks at {"seq": 4} and the flagship's
-                    cross-attention block at {"seq": 2}, the float32 output
+                    self-attention blocks at {"seq": 4}, the flagship's
+                    cross-attention block at {"seq": 2} and a block with
+                    256-channel heads (csrc/flash_forward_wide.cu), the float32 output
                     and log-sum-exp within 1e-4 in both input types, an
                     all-padding row exact zeros and -inf; then
                     decode_host: B2, B3 and B4 at their head cases, the
@@ -53,12 +56,22 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     time (decode_host_times); then B1a at the optical-flow
                     model's shapes, full mask (check_flow_flash_kernel): the
                     decoder's one 512-channel head, 182,528 pixel queries
-                    over 2,048 latents (csrc/flash_forward_wide.cu in bf16),
-                    checked at 1 patch and timed at 6, and the 24
+                    over 2,048 latents (csrc/flash_forward_wide.cu in bf16,
+                    which writes a bf16 output here), checked at 1 patch
+                    and at 6 (patch by patch), each twice for the same
+                    bits, and timed at 6, and the 24
                     self-attention layers' 8 x 64 over 2,048 x 2,048 at 6
                     patches; bf16 within 0.03 x the plain output's RMS plus
                     one bf16 step, f32 within 1e-4; the library call's
-                    CUDA kernels named (its backend at D = 512); then B1b
+                    CUDA kernels named (its backend at D = 512); then the
+                    wide bf16 forward beyond inference
+                    (check_wide_forward_kernel): the flow train step's call
+                    (2 patches, P in two terms, the float32 output and lse
+                    within 1e-4 patch by patch) and D = 192 and 256 at a
+                    left-padded causal shape with an odd query-tile count
+                    (a spare block in the last cluster), one-term P within
+                    flash_limit and two-term P within 1e-4, every launch
+                    twice for the same bits; then B1b
                     at heads of 192-512 (check_wide_backward_kernel): the
                     flow decoder's 512-channel head, full mask, in bf16
                     (csrc/flash_backward_wide.cu) checked at 1 patch and
@@ -159,6 +172,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -738,9 +752,14 @@ def check_flow_flash_kernel():
             nb = 1 if decoder else b
             q, k, v, _, _ = flash_case(nb, h, nq, nk, d, None, dtype, g)
             with torch.no_grad():
-                got = fl.splash_mha(q, k, v)
+                got, again = fl.splash_mha(q, k, v), fl.splash_mha(q, k, v)
             want = fl.flash_attention_reference(q, k, v)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash {name} {dtype}: two runs on the same inputs differ")
+            if got.dtype != dtype:
+                raise AssertionError(f"flash {name} {dtype}: the forward without gradients returned {got.dtype}")
+            del again
             atol, rtol = flash_limit(want, dtype)
             diff = (got.float() - want.float()).abs()
             err = diff.max().item()
@@ -751,7 +770,7 @@ def check_flow_flash_kernel():
             esize = torch.finfo(dtype).bits // 8
             rec = dict(kernel="splash_mha", shape=name, dtype=str(dtype).removeprefix("torch."), batch=b,
                        checked_batch=nb, heads=h, queries=nq, keys=nk, head_dim=d, mask="full",
-                       max_abs_err=err, limits=(atol, rtol),
+                       max_abs_err=err, limits=(atol, rtol), bit_identical=True,
                        ms_checked_batch=time_ms(lambda: fl._launch_forward(q, k, v, None, False, split_p=False)),
                        plain_ms_checked_batch=time_ms(lambda: fl.flash_attention_reference(q, k, v), reps=5),
                        library_ms_checked_batch=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)))
@@ -759,11 +778,14 @@ def check_flow_flash_kernel():
                 patches = [flash_case(1, h, nq, nk, d, None, dtype, g)[:3] for _ in range(b)]
                 q6, k6, v6 = (torch.cat(ts) for ts in zip(*patches))
                 o6 = fl._launch_forward(q6, k6, v6, None, False, split_p=False)[0]
+                if o6.dtype != torch.bfloat16 or not torch.equal(
+                        o6, fl._launch_forward(q6, k6, v6, None, False, split_p=False)[0]):
+                    raise AssertionError(f"flash {name} at {b} patches: not a bf16 output, or two runs differ")
                 errs6 = []
                 for i, patch in enumerate(patches):
                     want = fl.flash_attention_reference(*patch)
                     atol6, rtol6 = flash_limit(want, dtype)
-                    diff = (o6[i:i + 1].to(dtype).float() - want.float()).abs()
+                    diff = (o6[i:i + 1].float() - want.float()).abs()
                     errs6.append(diff.max().item())
                     if not (diff <= atol6 + rtol6 * want.float().abs()).all():
                         raise AssertionError(f"flash {name} {dtype} at {b} patches: patch {i} kernel vs plain "
@@ -790,6 +812,87 @@ def check_flow_flash_kernel():
             records.append(rec)
             del q, k, v
             torch.cuda.empty_cache()
+    return records
+
+
+# ------------------------- phase 3: B1a wide (csrc/flash_forward_wide.cu) beyond inference
+WIDE_FORWARD_SHAPES = {  # name: (batch, heads, queries, keys, head dim, left pads of the keys per row or None, causal)
+    # official_41m_config's decoder in the train step: B1a with two-term P
+    # (B1b reads its float32 output) at 2 patches, full mask
+    "flow_decoder_train_step": (2, 1, 182_528, 2048, 512, None, False),
+    # 1,050 queries: 16 full 64-query tiles and a partial one, so the last
+    # two-block cluster holds a spare block; left-padded keys, causal
+    "wide_192_padded_causal": (2, 2, 1050, 768, 192, [0, 300], True),
+    "wide_256_padded_causal": (2, 2, 1050, 768, 256, [0, 300], True),
+}
+
+
+def check_wide_forward_kernel():
+    """B1a's wide bf16 kernel (csrc/flash_forward_wide.cu) where the flow
+    inference check does not reach: the flow train step's call (2 patches,
+    P in two terms, float32 o), held patch by patch, and D 192 and 256,
+    padded and causal, at an odd query-tile count, with P in one term (the
+    bf16 output within flash_limit) and in two (the float32 output and lse
+    within F32_ATOL); every launch run twice for the same bits. Times per
+    call (L2 flushed), the bound, the plain version and the library call
+    F.scaled_dot_product_attention (with the same mask, returning the output
+    only)."""
+    g = torch.Generator(DEVICE).manual_seed(SEED + 12)
+    records = []
+    for name, (b, h, nq, nk, d, pads, causal) in WIDE_FORWARD_SHAPES.items():
+        decoder = name == "flow_decoder_train_step"
+        q, k, v, pad, _ = flash_case(b, h, nq, nk, d, pads, torch.bfloat16, g)
+        mask = None if pad is None and not causal else fl._visibility(nq, nk, pad, causal, q.device).contiguous()
+        rec = dict(kernel="splash_mha", shape=name, dtype="bfloat16", batch=b, heads=h, queries=nq, keys=nk,
+                   head_dim=d, causal=causal, query_tiles=-(-nq // 64), bit_identical=True, launches_per_call=1)
+        errs = {}
+        for split_p in ((True,) if decoder else (False, True)):
+            key = "two_term_p" if split_p else "one_term_p"
+            first, second = (fl._launch_forward(q, k, v, pad, causal, split_p=split_p) for _ in range(2))
+            torch.cuda.synchronize()
+            if not (torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])):
+                raise AssertionError(f"wide forward {name} ({key}): two runs on the same inputs differ")
+            want_dtype = torch.float32 if split_p else torch.bfloat16
+            if first[0].dtype != want_dtype:
+                raise AssertionError(f"wide forward {name} ({key}): o is {first[0].dtype}, not {want_dtype}")
+            del second
+            for i in range(b if decoder else 1):  # the decoder patch by patch, as the plain version's scores are large
+                at = slice(i, i + 1) if decoder else slice(None)
+                want_o, want_lse = fl._forward_plain(q[at], k[at], v[at], None if pad is None else pad[at], causal)
+                pairs = [("lse", first[1][at], want_lse)]
+                pairs.append(("o", first[0][at], want_o) if split_p else ("o", first[0][at], want_o.bfloat16()))
+                for part, x, y in pairs:
+                    atol, rtol = (F32_ATOL, 0.0) if split_p else flash_limit(y, torch.bfloat16)
+                    finite = torch.isfinite(y)
+                    if not torch.equal(torch.isfinite(x), finite):
+                        raise AssertionError(f"wide forward {name} ({key}) {part}: finite entries differ")
+                    diff = (x[finite].float() - y[finite].float()).abs()
+                    err = diff.max().item() if diff.numel() else 0.0
+                    errs[f"{part}_{key}"] = max(errs.get(f"{part}_{key}", 0.0), err)
+                    if not (diff <= atol + rtol * y[finite].float().abs()).all():
+                        raise AssertionError(f"wide forward {name} ({key}) {part}: kernel vs plain max error {err} "
+                                             f"(atol {atol}, rtol {rtol})")
+                del want_o, want_lse, pairs
+            del first
+        rec["max_abs_err"] = errs
+        if decoder:
+            rec.update(ms=time_ms(lambda: fl._launch_forward(q, k, v, None, False, split_p=True), reps=10),
+                       plain_ms=time_ms(lambda: [fl._forward_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], None, False)
+                                                 for i in range(b)], reps=3),
+                       plain_ms_note="the two patches one patch a call",
+                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), reps=10))
+            rec["bound_ms"], rec["bound_by"] = full_mask_bound(b, h, nq, nk, d, 2)
+        else:
+            (bounds, pairs) = flash_bounds(q, k, pad, 2)
+            rec.update(ms=time_ms(lambda: fl._launch_forward(q, k, v, pad, causal, split_p=False)),
+                       two_term_p_ms=time_ms(lambda: fl._launch_forward(q, k, v, pad, causal, split_p=True)),
+                       plain_ms=time_ms(lambda: fl._forward_plain(q, k, v, pad, causal)),
+                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)),
+                       visible_pairs=pairs, bound_ms=bounds["forward"][0], bound_by=bounds["forward"][1])
+        emit(phase="kernel_check", **rec)
+        records.append(rec)
+        del q, k, v, pad, mask
+        torch.cuda.empty_cache()
     return records
 
 
@@ -925,6 +1028,9 @@ RING_BLOCK_SHAPES = {  # name: (batch, heads, queries, keys, head dim, leading p
     "clm_8k_cross_block": (4, 8, 256, 1152, 64, [0, 300, 1152, 17]),
     "clm_8k_self_block": (4, 8, 256, 256, 64, None),  # its self-attention at {"seq": 4}
     "flagship_seq2_block": (16, 10, 256, 512, 128, None),  # the 455M flagship's cross-attention at {"seq": 2}
+    # a ring block at a wide head (csrc/flash_forward_wide.cu, two-term P):
+    # clm_8k's cross-attention block with 256-channel heads; row 2 all padding
+    "wide_256_block": (4, 4, 256, 1152, 256, [0, 300, 1152, 17]),
 }
 
 
@@ -2054,6 +2160,27 @@ def card_vs_cpu_sp():
                              f"(1e-3), steps {step_rel} (1e-4)")
 
 
+def wide_forward_ptxas(lines):
+    """B1a wide's ptxas report (registers and spill bytes of each of its
+    instantiations, by head width and P terms, and the count of ptxas notes
+    that it serialised wgmma), emitted as one line; a spill fails the run
+    (an empty report: the library was already built, nothing to read)."""
+    kernels, current = [], None
+    for line in lines:
+        found = re.search(r"flash_fwd_wide_kernelILi(\d+)ELb([01])E", line)
+        if "Compiling entry function" in line and found:
+            current = dict(head_dim=int(found.group(1)), split_p=found.group(2) == "1")
+            kernels.append(current)
+        elif current is not None and "spill stores" in line:
+            current["spill_bytes"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif current is not None and "Used" in line:
+            current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    serialised = [line for line in lines if "serialized" in line]
+    emit(phase="build", kernel="flash_fwd_wide_kernel", instantiations=kernels, wgmma_serialised=len(serialised))
+    if any(k.get("spill_bytes", 0) for k in kernels):
+        raise AssertionError(f"flash_forward_wide.cu spills registers: {kernels}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2065,8 +2192,10 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; this card has compute capability {cap}")
 
-    for source, rec in cuda_build.build().items():
+    built = cuda_build.build()
+    for source, rec in built.items():
         emit(phase="build", source=f"perceiver_io_torch/csrc/{source}.cu", **rec)
+    wide_forward_ptxas(built["flash_forward_wide"]["ptxas"])
 
     decode_results = check_decode_kernel()
     paged_results = check_paged_kernels()
@@ -2074,6 +2203,7 @@ def main() -> int:
     flash_results = check_flash_kernel()
     ring_results = check_ring_block_kernel()
     flow_flash_results = check_flow_flash_kernel()
+    wide_forward_results = check_wide_forward_kernel()
     wide_backward_results = check_wide_backward_kernel()
     launches = {"B2": main_path()}
     if launches["B2"] == 0:
@@ -2152,10 +2282,13 @@ def main() -> int:
             ("flow_self_attention", 64, "splash_mha_forward_flow_self_attention", "flash_forward_mma.cu")):
         mine = [r for r in flow_flash_results if r["shape"] == shape]
         head = next(r for r in mine if r["dtype"] == "bfloat16")
+        errs = [r["max_abs_err"] for r in mine]
+        if d == 512:  # the wide kernel's other checks: the train step's call, D 192 and 256
+            errs += [e for r in wide_forward_results for e in r["max_abs_err"].values()]
         kernels.append(dict(
             name=name, route="cuda", source=f"perceiver_io_torch/csrc/{source}",
             replaces="perceiver_io_tpu/ops/flash.py:164", launches=flow_launches[d],
-            max_abs_err=max(r["max_abs_err"] for r in mine), ms=head["ms"], plain_ms=head["plain_ms"],
+            max_abs_err=max(errs), ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         ))
     head = next(r for r in wide_backward_results if r["shape"] == "flow_decoder_cross_attention")

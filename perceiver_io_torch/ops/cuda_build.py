@@ -30,8 +30,9 @@ NVCC_FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas -v lines kept in build()'s report: the kernel's name, its registers, its spills
-_PTXAS_WORDS = ("Compiling entry function", "Used", "spill")
+# ptxas -v lines kept in build()'s report: the kernel's name, its registers, its
+# spills, and any warning (a setmaxnreg it ignored, wgmma it serialised)
+_PTXAS_WORDS = ("Compiling entry function", "Used", "spill", "warning", "Performance")
 
 
 def sources() -> List[str]:

@@ -7,9 +7,10 @@ Hopper kernels through a ``torch.autograd.Function``, or raises: B1a, the
 forward, is ``perceiver_io_torch/csrc/flash_forward_mma.cu`` for bfloat16
 heads of 64 and 128 channels (tensor-core ``mma.sync`` tiles),
 ``csrc/flash_forward_wide.cu`` for bfloat16 heads of 192 to 512 channels
-(the same tiles with Q read from shared memory and each warp owning half of
-the output's columns), and ``csrc/flash_attention.cu`` for float32 at every
-width (the tensor cores have no float32 product); B1b, the backward, is
+(``wgmma`` fed by TMA, warp-specialised, K and V multicast over a cluster
+of two blocks; a bf16 output when no float32 reader needs it), and
+``csrc/flash_attention.cu`` for float32 at every width (the tensor cores
+have no float32 product); B1b, the backward, is
 ``csrc/flash_backward_mma.cu`` for bfloat16 heads of 64 and 128 channels
 (two deterministic passes on ``mma.sync`` tiles, dK/dV and dQ, as the TPU's
 splash runs them), ``csrc/flash_backward_wide.cu`` for bfloat16 heads of 192
@@ -207,7 +208,8 @@ class _FlashAttention(torch.autograd.Function):
     ``flash_forward_wide.cu`` and ``flash_backward_wide.cu`` (192 to 512),
     float32 ``flash_attention.cu`` both ways. Saves (q, k, v, o, lse) and
     the pad mask, with o the float32 (or wider) output before its cast to
-    q's dtype."""
+    q's dtype; a wide bfloat16 forward without gradients writes o in
+    bfloat16 already, and returns it uncast."""
 
     @staticmethod
     def forward(ctx, q, k, v, pad_mask, causal):
@@ -219,7 +221,7 @@ class _FlashAttention(torch.autograd.Function):
             o, lse = _launch_forward(q, k, v, pad_mask, causal, split_p=any(ctx.needs_input_grad[:3]))
         ctx.save_for_backward(q, k, v, o, lse, pad_mask)
         ctx.causal = causal
-        return o.to(q.dtype)
+        return o.to(q.dtype)  # no copy when the kernel wrote q's dtype
 
     @staticmethod
     def backward(ctx, do):
@@ -285,7 +287,7 @@ def _wide_entry():
 
         fn = library("flash_forward_wide").flash_forward_wide
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q k v pad o lse B H Nq Nk D causal split_p stream
+        # q k v pad o lse B H Nq Nk D causal split_p stream (o: bf16 without split_p, else float32)
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
         _wide_fn = fn
@@ -339,7 +341,7 @@ def wide_backward_splits(batch_heads: int, n_q: int, n_k: int, head_dim: int, sm
 
 def _check_aligned(tensors: dict, what: str) -> None:
     for name, t in tensors.items():
-        if t.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
+        if t.data_ptr() % 16:  # cp.async copies rows in 16-byte pieces; a TMA tensor map needs a 16-byte base
             raise ValueError(f"the bf16 flash {what} needs 16-byte aligned tensors; {name} is not")
 
 
@@ -367,23 +369,25 @@ def _pad_bytes(pad_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _forward_entry(q, k, v, pad_mask, causal, split_p) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on the current stream, or raise: (o, lse),
-    both float32. bfloat16 inputs take a tensor-core kernel
-    (``flash_forward_mma`` for heads of 64 and 128 channels,
-    ``flash_forward_wide`` for 192 to 512; ``split_p``: P as two bf16 terms),
-    float32 ones ``flash_attention_forward``. Counts nothing: its callers
+    """Launch the forward kernel on the current stream, or raise: (o, lse).
+    bfloat16 inputs take a tensor-core kernel (``flash_forward_mma`` for
+    heads of 64 and 128 channels, ``flash_forward_wide`` for 192 to 512;
+    ``split_p``: P as two bf16 terms), float32 ones
+    ``flash_attention_forward``. lse is float32; o is float32, except from
+    ``flash_forward_wide`` without ``split_p`` (a forward whose output is
+    only cast), which writes it in bfloat16. Counts nothing: its callers
     do."""
     pad = _pad_bytes(pad_mask)
     _check_cuda({"q": q, "k": k, "v": v, "pad_mask": pad}, q)
     b, h, n_q, d = q.shape
-    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    wide = q.dtype == torch.bfloat16 and d not in _NARROW_HEAD_DIMS
+    o = torch.empty(q.shape, dtype=torch.bfloat16 if wide and not split_p else torch.float32, device=q.device)
     lse = torch.empty(b, h, n_q, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pad_ptr = None if pad is None else pad.data_ptr()
     if q.dtype == torch.bfloat16:
         _check_aligned({"q": q, "k": k, "v": v}, "forward")
-        name, entry = ("flash_forward_mma", _mma_entry) if d in _NARROW_HEAD_DIMS else ("flash_forward_wide",
-                                                                                        _wide_entry)
+        name, entry = ("flash_forward_wide", _wide_entry) if wide else ("flash_forward_mma", _mma_entry)
         err = entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, o.data_ptr(), lse.data_ptr(), b, h, n_q,
                       k.shape[2], d, int(causal), int(split_p), stream)
     else:
@@ -396,9 +400,11 @@ def _forward_entry(q, k, v, pad_mask, causal, split_p) -> Tuple[torch.Tensor, to
 
 
 def _launch_forward(q, k, v, pad_mask, causal, split_p=True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B1a on the current stream, or raise: (o, lse), both float32.
-    ``split_p``: in bfloat16, P as two bf16 terms (needed when B1b will read
-    o); one term is enough for an output that is only cast to bf16."""
+    """Launch B1a on the current stream, or raise: (o, lse), lse float32
+    and o float32 (bfloat16 from the wide kernel without ``split_p``; see
+    ``_forward_entry``). ``split_p``: in bfloat16, P as two bf16 terms
+    (needed when B1b will read o); one term is enough for an output that is
+    only cast to bf16."""
     global forward_launches
     out = _forward_entry(q, k, v, pad_mask, causal, split_p)
     forward_launches += 1

@@ -570,6 +570,59 @@ def test_wide_flash_forward_pad_only_row_is_exact_zeros_and_bits_repeat(card, dt
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("causal", [False, True], ids=["padded", "padded_causal"])
+def test_wide_flash_forward_spare_block_and_bits_repeat(card, d, causal):
+    """The wide bf16 kernel's cluster pairs at an odd query-tile count
+    (Nq = 1,050: 16 tiles of 64 and a partial one, so the grid's last
+    cluster holds a spare block), left-padded keys, causal or not: one-term
+    P (a bf16 output) within B1's bf16 limit of the plain version, two-term
+    P (a float32 output) within 1e-4 with its lse, and each launch twice
+    gives the same bits."""
+    g = torch.Generator(card).manual_seed(d + causal)
+    b, h, nq, nk = 2, 2, 1050, 768
+    q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).bfloat16()
+    k, v = (torch.randn(b, h, nk, d, generator=g, device=card).bfloat16() for _ in range(2))
+    pad = torch.arange(nk, device=card)[None, :] < torch.tensor([0, 300], device=card)[:, None]
+    want_o, want_lse = fl._forward_plain(q, k, v, pad, causal)
+    want = want_o.bfloat16()
+    for split_p in (False, True):
+        first, second = (fl._launch_forward(q, k, v, pad, causal, split_p=split_p) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+        o, lse = first
+        assert o.dtype == (torch.float32 if split_p else torch.bfloat16) and lse.dtype == torch.float32
+        if split_p:
+            finite = torch.isfinite(want_lse)
+            assert torch.equal(torch.isfinite(lse), finite)
+            torch.testing.assert_close(o, want_o, atol=1e-4, rtol=0)
+            torch.testing.assert_close(lse[finite], want_lse[finite], atol=1e-4, rtol=0)
+        else:
+            torch.testing.assert_close(o.float(), want.float(), **_flash_limit(want, torch.bfloat16))
+
+
+def test_wide_flash_forward_at_512_over_many_clusters(card):
+    """D = 512 (the flow decoder's width: 32-key tiles, two stages), 4,100
+    queries (65 tiles: 33 clusters, the last with a spare block) over 2,048
+    keys, full mask, two batch rows: two-term P within 1e-4 of the plain
+    float32 output and lse, one-term P's bf16 output within B1's limit, and
+    the no-gradient Function returning the kernel's bf16 output as it is."""
+    g = torch.Generator(card).manual_seed(12)
+    b, h, nq, nk, d = 2, 1, 4100, 2048, 512
+    q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).bfloat16()
+    k, v = (torch.randn(b, h, nk, d, generator=g, device=card).bfloat16() for _ in range(2))
+    want_o, want_lse = fl._forward_plain(q, k, v, None, False)
+    o, lse = fl._launch_forward(q, k, v, None, False, split_p=True)
+    with torch.no_grad():
+        got = fl.splash_mha(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, want_o, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    want = want_o.bfloat16()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **_flash_limit(want, torch.bfloat16))
+
+
 def test_wide_flash_backward_raises(card):
     """B1b takes heads of up to 512 channels: a wider one (576) raises
     before any launch, and never gives way to the plain version."""
@@ -735,7 +788,8 @@ def test_flagship_width_train_step_on_the_card(card):
     (3, 2, 70, 150, 64, [0, 150, 90]),          # ragged tiles; row 1's block is all padding
     (4, 8, 256, 1152, 64, [0, 300, 1152, 17]),  # clm_8k's cross-attention block at {"seq": 4}
     (16, 10, 256, 512, 128, None),              # the flagship's cross-attention block at {"seq": 2}
-], ids=["ragged_all_pad_row", "clm_8k_cross_block", "flagship_seq2_block"])
+    (3, 2, 200, 512, 256, [0, 512, 100]),       # a wide block (flash_forward_wide.cu), row 1 all padding
+], ids=["ragged_all_pad_row", "clm_8k_cross_block", "flagship_seq2_block", "wide_256_block"])
 def test_ring_block_kernel_matches_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pads):
     """B5 (B1a's entry, no causal mask) against its plain version: the
     float32 output and log-sum-exp within 1e-4 for both input types, as

@@ -33,6 +33,8 @@ B, H, D = 1, 2, 64
 ATOL = 2e-5
 KERNEL_SOURCE = Path(fl.__file__).resolve().parent.parent / "csrc" / "flash_backward_mma.cu"
 WIDE_KERNEL_SOURCE = KERNEL_SOURCE.with_name("flash_backward_wide.cu")
+WIDE_FORWARD_SOURCE = KERNEL_SOURCE.with_name("flash_forward_wide.cu")
+SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block may have
 
 
 @pytest.fixture
@@ -270,19 +272,27 @@ def test_a_query_that_sees_no_key_gets_zeros():
     assert torch.isneginf(lse[1]).all() and torch.isfinite(lse[0]).all()
 
 
-def _bf16_kernel_arithmetic(q, k, v, pad, causal, split_p, tile=64):
-    """The bf16 forward's arithmetic (csrc/flash_forward_mma.cu) in plain
-    float32 PyTorch: 64-key tiles, the online softmax, P rounded to bf16 in
-    one term or split into two (hi + lo) before the P V product, and the sum
-    l of the unrounded p. Returns (o, lse) in float32."""
+def _bf16_kernel_arithmetic(q, k, v, pad, causal, split_p, tile=64, s_split=None):
+    """The bf16 forward's arithmetic (csrc/flash_forward_mma.cu, or with
+    ``_wide_forward_design``'s tile and split csrc/flash_forward_wide.cu)
+    in plain float32 PyTorch: ``tile``-key tiles, S = Q K^T in float32 (with
+    ``s_split``, as the wide kernel's two consumers make it: the partial
+    over channels [0, s_split) plus the partial over [s_split, D)), the
+    online softmax, P rounded to bf16 in one term or split into two (hi +
+    lo) before the P V product, and the sum l of the unrounded p. Returns
+    (o, lse) in float32."""
     qf, kf, vf = (t.float() for t in (q, k, v))
     b, h, nq, d = q.shape
     visible = fl._visibility(nq, k.shape[2], pad, causal, q.device)
     m = torch.full((b, h, nq), float("-inf"))
     l, acc = torch.zeros(b, h, nq), torch.zeros(b, h, nq, d)
     for k0 in range(0, k.shape[2], tile):
-        vt = vf[:, :, k0:k0 + tile]
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + tile])
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        if s_split is None:
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, kt)
+        else:
+            s = (torch.einsum("bhqd,bhkd->bhqk", qf[..., :s_split], kt[..., :s_split])
+                 + torch.einsum("bhqd,bhkd->bhqk", qf[..., s_split:], kt[..., s_split:]))
         s = s.masked_fill(~visible[..., k0:k0 + tile], float("-inf"))
         m_new = torch.maximum(m, s.amax(-1))
         m_use = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
@@ -295,6 +305,64 @@ def _bf16_kernel_arithmetic(q, k, v, pad, causal, split_p, tile=64):
         acc, m = acc * alpha[..., None] + pv, m_new
     o = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
     return o, torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
+
+
+def _wide_forward_design(d):
+    """csrc/flash_forward_wide.cu's design at head width d, read from the
+    source: its key tile and stages, each consumer's 64-channel boxes of S's
+    contraction and of the output's columns, the P terms its P V product
+    takes without and with kSplitP, and its shared-memory bytes
+    (``smem_bytes`` evaluated at these tiles)."""
+    src = WIDE_FORWARD_SOURCE.read_text()
+
+    def body(name):
+        return re.search(rf"constexpr \w+ {name}\((?:int c)?\) \{{(?:\s*//[^\n]*)?\s*return ([^;]+);", src).group(1)
+
+    def ternary(expr, env):  # ``a ? x : b ? y : z`` over integer C expressions of D (and c)
+        for cond, value in re.findall(r"([^?:]+)\?([^:]+):", expr + ":"):
+            if eval(cond.replace("/", "//"), {}, env):
+                return eval(value.replace("/", "//"), {}, env)
+        return eval(expr.rsplit(":", 1)[1].replace("/", "//"), {}, env)
+
+    tile, stages = ternary(body("key_tile"), {"D": d}), ternary(body("stages"), {"D": d})
+    s_boxes = [ternary(body("s_boxes"), {"D": d, "c": c}) for c in (0, 1)]
+    o_boxes = [ternary(body("o_boxes"), {"D": d, "c": c}) for c in (0, 1)]
+    smem = body("smem_bytes")
+    for word, value in (("sizeof(bf16)", 2), ("sizeof(float)", 4), ("sizeof(uint64_t)", 8), ("kBQ", 64),
+                        ("stages<D>()", stages), ("key_tile<D>()", tile), ("D", d)):
+        smem = smem.replace(word, str(value))
+    # the P V product: P's hi term always, its lo term only under kSplitP
+    lo = re.search(r"if constexpr \(kSplitP\) Wgmma<kON>::rs\(acc, p\.lo\[kk\], dv\);", src)
+    return dict(tile=tile, stages=stages, s_boxes=s_boxes, o_boxes=o_boxes, smem=eval(" ".join(smem.split())),
+                p_terms={False: 1, True: 2 if lo else 1})
+
+
+def _wide_arithmetic(q, k, v, pad, causal, split_p):
+    """``_bf16_kernel_arithmetic`` with csrc/flash_forward_wide.cu's design at q's head width."""
+    design = _wide_forward_design(q.shape[-1])
+    return _bf16_kernel_arithmetic(q, k, v, pad, causal, design["p_terms"][split_p] == 2, tile=design["tile"],
+                                   s_split=64 * design["s_boxes"][0])
+
+
+@pytest.mark.parametrize("d", [192, 256, 320, 384, 448, 512])
+def test_wide_forward_design_fits_the_card(d):
+    """Each width of csrc/flash_forward_wide.cu, read from the source: its
+    shared memory (Q, its stages of K and V, the double-buffered S
+    exchange, the mbarriers and 1 KB of alignment slack) fits the 232,448
+    bytes a block may have, and equals the header's table; the consumers'
+    boxes cover D once each way, each wgmma N (64 x output boxes) a
+    multiple of 8 no wider than 256; a half tile (the multicast box) is a
+    whole number of 8-row swizzle atoms; P takes one term, two with
+    kSplitP."""
+    design = _wide_forward_design(d)
+    assert design["smem"] <= SMEM_PER_BLOCK
+    row = re.search(rf"//   D {d}: (\d+)-key tiles, (\d) stages, ([\d,]+) bytes", WIDE_FORWARD_SOURCE.read_text())
+    assert (int(row.group(1)), int(row.group(2)), int(row.group(3).replace(",", ""))) == (
+        design["tile"], design["stages"], design["smem"])
+    assert sum(design["s_boxes"]) == sum(design["o_boxes"]) == d // 64 and min(design["s_boxes"]) >= 1
+    assert all(64 * n <= 256 for n in design["o_boxes"])
+    assert design["tile"] // 2 % 8 == 0 and design["stages"] >= 2
+    assert design["p_terms"] == {False: 1, True: 2}
 
 
 @pytest.mark.usefixtures("two_torch_threads")
@@ -336,7 +404,8 @@ def test_rounding_budget_of_the_bf16_forward():
 @pytest.mark.usefixtures("two_torch_threads")
 def test_rounding_budget_of_the_bf16_forward_at_512_channels():
     """The wide kernel (csrc/flash_forward_wide.cu) at the flow decoder's
-    head: 32-key tiles, P in one bf16 term (an inference forward) within
+    head: its key tile and S split read from the source (32-key tiles, S as
+    two 256-channel partials), P in one bf16 term (an inference forward) within
     B1's bf16 limit of the plain output once cast to bf16, and two terms
     within 1e-4 of the float32 output and lse, at 256 queries over 2,048
     keys with one row's keys left-padded."""
@@ -347,11 +416,60 @@ def test_rounding_budget_of_the_bf16_forward_at_512_channels():
     pad = torch.arange(nk)[None, :] < torch.tensor([0, 300])[:, None]
     want_o, want_lse = fl._forward_plain(q, k, v, pad, False)
     limit = 0.03 * want_o.pow(2).mean().sqrt() + 2.0**-7 * want_o.abs()
-    one_o, _ = _bf16_kernel_arithmetic(q, k, v, pad, False, split_p=False, tile=32)
-    two_o, two_lse = _bf16_kernel_arithmetic(q, k, v, pad, False, split_p=True, tile=32)
+    one_o, _ = _wide_arithmetic(q, k, v, pad, False, split_p=False)
+    two_o, two_lse = _wide_arithmetic(q, k, v, pad, False, split_p=True)
     assert ((one_o.bfloat16().float() - want_o).abs() <= limit).all()
     torch.testing.assert_close(two_o, want_o, atol=1e-4, rtol=0)
     torch.testing.assert_close(two_lse, want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [192, 256, 512])
+def test_wide_forward_emulation_within_b1_limits(d, causal):
+    """The wide kernel's arithmetic (its tile, S split and P terms read from
+    csrc/flash_forward_wide.cu) against the plain version at a ragged,
+    left-padded shape (200 queries over 300 keys, one row's first 120 keys
+    padding; causal, that row's first 20 queries see no key): one-term P, the output cast
+    to bf16, within B1's bf16 limit (0.03 x RMS plus one bf16 step); two-term
+    P, the float32 output and lse within 1e-4; rows that see no key exact
+    zeros and -inf."""
+    rs = np.random.RandomState(d + causal)
+    b, h, nq, nk = 2, 1, 200, 300
+    q = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32) * d**-0.5).bfloat16()
+    k, v = (torch.from_numpy(rs.randn(b, h, nk, d).astype(np.float32)).bfloat16() for _ in range(2))
+    pad = torch.arange(nk)[None, :] < torch.tensor([0, 120])[:, None]
+    want_o, want_lse = fl._forward_plain(q, k, v, pad, causal)
+    limit = 0.03 * want_o.pow(2).mean().sqrt() + 2.0**-7 * want_o.abs()
+    one_o, _ = _wide_arithmetic(q, k, v, pad, causal, split_p=False)
+    two_o, two_lse = _wide_arithmetic(q, k, v, pad, causal, split_p=True)
+    assert ((one_o.bfloat16().float() - want_o).abs() <= limit).all()
+    torch.testing.assert_close(two_o, want_o, atol=1e-4, rtol=0)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(two_lse), finite) and finite.all() != causal
+    torch.testing.assert_close(two_lse[finite], want_lse[finite], atol=1e-4, rtol=0)
+    assert (one_o[~finite] == 0).all() and (two_o[~finite] == 0).all()
+
+
+def test_wide_forward_emulation_matches_interpreted_splash():
+    """The wide kernel's arithmetic at D 320 (an odd box count: S split 128
+    + 192 channels, 32-key tiles) against JAX's splash in interpret mode on
+    the same bf16-valued inputs, causal with padding keys: one-term P cast
+    to bf16 within B1's bf16 limit of splash's output, two-term P within
+    1e-4."""
+    rs = np.random.RandomState(3)
+    d = 320
+    q, k, v = (rs.randn(2, 1, n, d).astype(np.float32) * s for n, s in ((128, d**-0.5), (256, 1.0), (256, 1.0)))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    pad = np.arange(256)[None, :] < np.array([0, 45])[:, None]
+    want = torch.from_numpy(np.array(jax_splash_mha(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+                                                    pad_mask=jnp.asarray(pad), causal=True, interpret=True)))
+    assert _wide_forward_design(d)["s_boxes"] == [2, 3]
+    one_o, _ = _wide_arithmetic(q, k, v, torch.from_numpy(pad), True, split_p=False)
+    two_o, _ = _wide_arithmetic(q, k, v, torch.from_numpy(pad), True, split_p=True)
+    limit = 0.03 * want.pow(2).mean().sqrt() + 2.0**-7 * want.abs()
+    assert ((one_o.bfloat16().float() - want).abs() <= limit).all()
+    torch.testing.assert_close(two_o, want, atol=1e-4, rtol=0)
 
 
 def _kernel_terms(x, terms):
