@@ -13,9 +13,10 @@ port's CPU run and the ring against the plain path.
 Phases (each prints JSON lines; any failure raises and the exit code is not 0):
   1. device         CUDA with compute capability (9, 0); the card's name and power limit
   2. build          one nvcc per perceiver_io_torch/csrc/*.cu, all started together:
-                    seconds and ptxas lines per source; B1a wide's registers
-                    and spills by instantiation (a spill fails the run) and
-                    the count of ptxas notes that it serialised wgmma
+                    seconds and ptxas lines per source; B1a and B1b wide's
+                    registers and spills by instantiation (a spill fails the
+                    run) and the count of ptxas notes that each source's
+                    wgmma were serialised
   3. kernel_check   each kernel vs its plain version at the main paths'
                     shapes: f32 max error 1e-4; bf16 and quantized pools 0.03 x
                     the RMS of the plain output; times, the least time the
@@ -75,10 +76,14 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     at heads of 192-512 (check_wide_backward_kernel): the
                     flow decoder's 512-channel head, full mask, in bf16
                     (csrc/flash_backward_wide.cu) checked at 1 patch and
-                    timed at the train step's 2, and D = 192 and 256 in
-                    bf16 and f32 at a left-padded causal shape, dq, dk and
-                    dv against the plain backward within flash_limit, pad
-                    keys' dk and dv exact zeros, two runs the same bits;
+                    at the train step's 2 (patch by patch), timed at 2 with
+                    each pass's device ms (delta, dK/dV, reduce, dQ), D =
+                    192 and 256 in bf16 and f32 at a left-padded causal
+                    shape, and D = 320 in bf16 at one whose query and key
+                    tiles both leave a spare block in their last cluster;
+                    dq, dk and dv against the plain backward within
+                    flash_limit, pad keys' dk and dv exact zeros, two runs
+                    the same bits;
                     the library call F.scaled_dot_product_attention forward
                     and backward timed with its kernels named, or its error
   4. main_path      flagship generation in bf16 at batch 8 through generate():
@@ -903,7 +908,34 @@ WIDE_BACKWARD_SHAPES = {  # name: (batch, heads, queries, keys, head dim, left p
     "flow_decoder_cross_attention": (2, 1, 182_528, 2048, 512, None, False),
     "wide_192_padded_causal": (2, 2, 1024, 768, 192, [0, 300], True),
     "wide_256_padded_causal": (2, 2, 1024, 768, 256, [0, 300], True),
+    # 1,050 queries: 17 of the dQ pass's 64-query tiles, so its last cluster
+    # holds a spare block; 720 keys: 23 of the dK/dV pass's 32-key blocks, the
+    # last ragged, and a spare block there too; bf16 only
+    "wide_320_padded_causal_ragged": (2, 2, 1050, 720, 320, [0, 300], True),
 }
+# the wide backward's passes, by a fragment of each kernel's name
+WIDE_BACKWARD_PASSES = {"flash_bwd_delta_kernel": "delta", "flash_bwd_wide_dkdv_kernel": "dkdv",
+                        "flash_bwd_wide_reduce_kernel": "reduce", "flash_bwd_wide_dq_kernel": "dq"}
+
+
+def wide_backward_pass_ms(fn, calls=3):
+    """Device ms of each pass of one wide bf16 backward call (torch.profiler,
+    median over ``calls`` calls): delta, dK/dV, the split reduce, dQ."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in WIDE_BACKWARD_PASSES.values()}
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for fragment, name in WIDE_BACKWARD_PASSES.items():
+                    if fragment in e.key:
+                        times[name].append(e.self_device_time_total / 1e3)
+    return {name: statistics.median(ts) for name, ts in times.items() if ts}
 
 
 def check_wide_backward_kernel():
@@ -917,13 +949,16 @@ def check_wide_backward_kernel():
     bits), timed at 2 (kernel, the plain backward as two one-patch calls,
     and the library yardstick F.scaled_dot_product_attention: its backward
     from a saved forward, and forward + backward, with the CUDA kernels it
-    ran named, or the error it raised); D 192 and 256 in bf16 and f32 at a
-    left-padded causal shape. Times per call, L2 flushed."""
+    ran named, or the error it raised, and each pass's device ms); D 192 and
+    256 in bf16 and f32 at a left-padded causal shape; D 320 in bf16 at a
+    left-padded causal shape whose query and key tiles both leave a spare
+    block in their last cluster. Times per call, L2 flushed."""
     g = torch.Generator(DEVICE).manual_seed(SEED + 11)
     records = []
     for name, (b, h, nq, nk, d, pads, causal) in WIDE_BACKWARD_SHAPES.items():
         decoder = name == "flow_decoder_cross_attention"
-        for dtype in (torch.bfloat16,) if decoder else (torch.float32, torch.bfloat16):
+        bf16_only = decoder or name.endswith("_ragged")
+        for dtype in (torch.bfloat16,) if bf16_only else (torch.float32, torch.bfloat16):
             nb = 1 if decoder else b
             q, k, v, pad, do = flash_case(nb, h, nq, nk, d, pads, dtype, g)
             o, lse = fl._forward_plain(q, k, v, pad, causal)
@@ -986,6 +1021,8 @@ def check_wide_backward_kernel():
                     splits=fl.wide_backward_splits(b * h, nq, nk, d,
                                                    torch.cuda.get_device_properties(0).multi_processor_count),
                     ms=time_ms(lambda: fl._launch_backward(q2, k2, v2, None, False, o2, lse2, do2), reps=10),
+                    ms_by_pass=wide_backward_pass_ms(lambda: fl._launch_backward(q2, k2, v2, None, False, o2, lse2,
+                                                                                 do2)),
                     ms_checked_batch=time_ms(lambda: fl._launch_backward(q, k, v, None, False, o, lse, do), reps=10),
                     plain_ms=time_ms(lambda: [fl._backward_plain(pq, pk, pv, None, False, po, pl, pdo)
                                               for pq, pk, pv, po, pl, pdo in per_patch], reps=3),
@@ -2160,25 +2197,32 @@ def card_vs_cpu_sp():
                              f"(1e-3), steps {step_rel} (1e-4)")
 
 
-def wide_forward_ptxas(lines):
-    """B1a wide's ptxas report (registers and spill bytes of each of its
-    instantiations, by head width and P terms, and the count of ptxas notes
-    that it serialised wgmma), emitted as one line; a spill fails the run
-    (an empty report: the library was already built, nothing to read)."""
+def wide_ptxas(source, lines):
+    """The ptxas report of a wide flash source (flash_forward_wide or
+    flash_backward_wide): registers and spill bytes of each kernel
+    instantiation (its name, head width and, in the forward, P's terms), and
+    the count of ptxas notes that it serialised wgmma (C7513/C7518/C7520),
+    emitted as one line; a spill fails the run (an empty report: the library
+    was already built, nothing to read)."""
     kernels, current = [], None
     for line in lines:
-        found = re.search(r"flash_fwd_wide_kernelILi(\d+)ELb([01])E", line)
+        found = re.search(r"(flash_(?:fwd|bwd)_[a-z_]*kernel)(?:ILi(\d+)E)?(?:Lb([01])E)?", line)
         if "Compiling entry function" in line and found:
-            current = dict(head_dim=int(found.group(1)), split_p=found.group(2) == "1")
+            current = dict(kernel=found.group(1))
+            if found.group(2):
+                current["head_dim"] = int(found.group(2))
+            if found.group(3):
+                current["split_p"] = found.group(3) == "1"
             kernels.append(current)
         elif current is not None and "spill stores" in line:
             current["spill_bytes"] = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
         elif current is not None and "Used" in line:
             current["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
     serialised = [line for line in lines if "serialized" in line]
-    emit(phase="build", kernel="flash_fwd_wide_kernel", instantiations=kernels, wgmma_serialised=len(serialised))
+    emit(phase="build", source=f"perceiver_io_torch/csrc/{source}.cu", instantiations=kernels,
+         wgmma_serialised=len(serialised))
     if any(k.get("spill_bytes", 0) for k in kernels):
-        raise AssertionError(f"flash_forward_wide.cu spills registers: {kernels}")
+        raise AssertionError(f"{source}.cu spills registers: {kernels}")
 
 
 def main() -> int:
@@ -2195,7 +2239,8 @@ def main() -> int:
     built = cuda_build.build()
     for source, rec in built.items():
         emit(phase="build", source=f"perceiver_io_torch/csrc/{source}.cu", **rec)
-    wide_forward_ptxas(built["flash_forward_wide"]["ptxas"])
+    for source in ("flash_forward_wide", "flash_backward_wide"):
+        wide_ptxas(source, built[source]["ptxas"])
 
     decode_results = check_decode_kernel()
     paged_results = check_paged_kernels()

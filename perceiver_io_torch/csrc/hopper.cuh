@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks written as inline PTX, shared by the
-// kernels that run on wgmma fed by TMA (flash_forward_wide.cu): mbarriers,
-// the TMA tile load with and without cluster multicast, the wgmma shared-
-// memory descriptor with its fence, commit and wait, the wgmma products
-// themselves, setmaxnreg, named barriers and the host-side encoding of a
-// tensor map. Plain PTX, no CuTe/CUTLASS templates, so that a source that
-// includes it compiles in seconds.
+// kernels that run on wgmma fed by TMA (flash_forward_wide.cu and
+// flash_backward_wide.cu): mbarriers, the TMA tile load with and without
+// cluster multicast and the TMA tile store, the wgmma shared-memory
+// descriptor with its fence, commit and wait, the proxy fence for operands
+// stored by threads, the wgmma products themselves, setmaxnreg, named
+// barriers and the host-side encoding of a tensor map. Plain PTX, no
+// CuTe/CUTLASS templates, so that a source that includes it compiles in
+// seconds.
 //
 // Layout convention: every tile in shared memory is stored as boxes of 64
 // bf16 channels (128 bytes a row) written by TMA with the 128-byte swizzle
@@ -108,6 +110,27 @@ __device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// This block's shared-memory box (written with the tensor map's swizzle) out
+// to coordinates (c0, c1, c2) of the tensor map, as part of the issuing
+// thread's bulk-async group; coordinates past the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Waits until at most N of the thread's bulk groups still read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of the thread's bulk groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // -------------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor for the SWIZZLE_128B layout. K-major
 // operands (rows of 64 channels, the contraction contiguous): lbo unused (16),
@@ -118,7 +141,14 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
          ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);
 }
+// The descriptor of the tile `bytes` further on (a multiple of 16) in the
+// same layout: the start address is the descriptor's low field, in 16-byte units.
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) { return desc + (bytes >> 4); }
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+// Makes this thread's ordinary stores to shared memory visible to the async
+// proxy (wgmma's operand reads): after storing an operand, before the barrier
+// that lets a warpgroup multiply it.
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
@@ -139,37 +169,53 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // wgmma.mma_async m64nNk16 with bf16 inputs and float32 sums (d += A B),
 // accumulator layout as mma.sync's m16n8 tiles, warp w of the warpgroup
 // holding rows 16 w .. 16 w + 15: ss takes A (64 x 16) and B (16 x N) both
-// K-major from shared memory; rs takes A from registers (mma.sync's A-
-// fragment layout) and B MN-major (transposed) from shared memory.
+// from shared memory, K-major unless TA (A) or TB (B) is 1, which reads that
+// operand MN-major (transposed: the contraction along its rows, as V in P V
+// or dO in dV^T = dO^T P); rs takes A from registers (mma.sync's A-fragment
+// layout) and B MN-major from shared memory.
 template <int N>
 struct Wgmma;
 template <>
+struct Wgmma<16> {
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+                 "%8, %9, p, 1, 1, %11, %12;\n}\n"
+                 : F4(0), F4(4)
+                 : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+template <>
 struct Wgmma<32> {
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
                  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-                 "%16, %17, p, 1, 1, 0, 0;\n}\n"
+                 "%16, %17, p, 1, 1, %19, %20;\n}\n"
                  : F16(0)
-                 : "l"(a), "l"(b), "r"(1));
+                 : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   }
 };
 template <>
 struct Wgmma<64> {
+  template <int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-                 "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "%32, %33, p, 1, 1, %35, %36;\n}\n"
                  : F32(0)
-                 : "l"(a), "l"(b), "r"(1));
+                 : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
   }
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-                 "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
                  "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
                  : F32(0)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
@@ -177,13 +223,25 @@ struct Wgmma<64> {
 };
 template <>
 struct Wgmma<128> {
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+                 "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                 "%61, %62, %63}, "
+                 "%64, %65, p, 1, 1, %67, %68;\n}\n"
+                 : F32(0), F32(32)
+                 : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-                 "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-                 "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-                 "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+                 "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                 "%61, %62, %63}, "
                  "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
                  : F32(0), F32(32)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
@@ -191,15 +249,27 @@ struct Wgmma<128> {
 };
 template <>
 struct Wgmma<192> {
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[96], uint64_t a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+                 "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                 "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, "
+                 "%81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+                 "%96, %97, p, 1, 1, %99, %100;\n}\n"
+                 : F32(0), F32(32), F32(64)
+                 : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
   static __device__ __forceinline__ void rs(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-                 "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-                 "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-                 "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-                 "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
-                 "%87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+                 "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                 "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, "
+                 "%81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
                  "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
                  : F32(0), F32(32), F32(64)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
@@ -207,17 +277,31 @@ struct Wgmma<192> {
 };
 template <>
 struct Wgmma<256> {
+  template <int TA = 0, int TB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+                 "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                 "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, "
+                 "%81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+                 "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+                 "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+                 "%128, %129, p, 1, 1, %131, %132;\n}\n"
+                 : F32(0), F32(32), F32(64), F32(96)
+                 : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+  }
   static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-                 "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-                 "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-                 "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-                 "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "
-                 "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103,"
-                 " %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-                 "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+                 "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+                 "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, "
+                 "%81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+                 "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+                 "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
                  "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
                  : F32(0), F32(32), F32(64), F32(96)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));

@@ -14,12 +14,13 @@ have no float32 product); B1b, the backward, is
 ``csrc/flash_backward_mma.cu`` for bfloat16 heads of 64 and 128 channels
 (two deterministic passes on ``mma.sync`` tiles, dK/dV and dQ, as the TPU's
 splash runs them), ``csrc/flash_backward_wide.cu`` for bfloat16 heads of 192
-to 512 channels (the same two passes with the score products split over the
-warps, P and dS passed through shared memory, and the dK/dV pass's query
+to 512 channels (two passes on ``wgmma`` fed by TMA, warp-specialised,
+the streamed tiles multicast over a cluster of two blocks: dK/dV, its query
 range split over blocks whose float32 partial sums a reduce adds in split
-order) and ``csrc/flash_attention.cu`` for float32 at every width (each
-file's header says what bounds its kernels). On a CPU tensor the same Function
-computes the kernels' arithmetic in plain PyTorch (``_forward_plain``,
+order, writes dS to a scratch; dQ multiplies that dS by K) and
+``csrc/flash_attention.cu`` for float32 at every width (each file's header
+says what bounds its kernels). On a CPU tensor the same Function computes
+the kernels' arithmetic in plain PyTorch (``_forward_plain``,
 ``_backward_plain``). ``flash_attention_reference`` is the plain version
 written with autograd-native ops: the CUDA kernels and the CPU route are held
 against it and its autograd gradients. There is no other fallback.
@@ -68,15 +69,14 @@ _HEAD_DIMS = tuple(range(64, MAX_HEAD_DIM + 1, 64))  # the forward kernels' widt
 # the bf16 kernels of flash_forward_mma.cu and flash_backward_mma.cu; wider
 # heads take flash_forward_wide.cu and flash_backward_wide.cu
 _NARROW_HEAD_DIMS = (64, 128)
-# flash_backward_wide.cu's dK/dV pass: query rows of a tile (its kDkdvCols)
-# and the blocks a card's SM should get; its key rows a block are
-# ``_wide_key_rows`` (its dkdv_rows). The tests hold both to the source.
-_WIDE_QUERY_ROWS = 32
-_WIDE_BLOCKS_PER_SM = 4
-
-
-def _wide_key_rows(head_dim: int) -> int:
-    return 64 if head_dim <= 256 else 32
+# flash_backward_wide.cu's dK/dV pass: key rows a block (its kDkdvKeys),
+# query rows of a tile (its kDkdvCols), blocks in a cluster, and the waves of
+# one-block-an-SM that its grid should make. The tests hold the first three
+# to the source.
+_WIDE_KEY_ROWS = 32
+_WIDE_QUERY_ROWS = 64
+_WIDE_CLUSTER = 2
+_WIDE_WAVES = 8
 
 # Launches since import (or since the caller last reset them to 0): one per
 # forward kernel call (B1a; also counted by head width in
@@ -320,8 +320,8 @@ def _wide_backward_entry():
 
         fn = library("flash_backward_wide").flash_backward_wide
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q k v pad o lse dout delta ws dq dk dv B H Nq Nk D causal splits stream
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        # q k v pad o lse dout delta ws ds dq dk dv B H Nq Nk D causal splits stream
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
         _wide_bwd_fn = fn
     return _wide_bwd_fn
@@ -329,14 +329,24 @@ def _wide_backward_entry():
 
 def wide_backward_splits(batch_heads: int, n_q: int, n_k: int, head_dim: int, sms: int) -> int:
     """How many blocks ``flash_backward_wide.cu``'s dK/dV pass splits each
-    key tile's query range over: enough for ``_WIDE_BLOCKS_PER_SM`` blocks
-    an SM over the (batch*head, key tile) pairs, and no more than one split
-    per 4 query tiles. The flow decoder at 2 patches (2 x 64 key tiles of 32
-    rows) gets 5 splits on 132 SMs."""
-    key_tiles = -(-n_k // _wide_key_rows(head_dim))
+    key tile's query range over: enough for ``_WIDE_WAVES`` waves of one
+    block an SM (the kernel's shared memory allows one) over the (batch*head,
+    key tile) pairs, the key tiles padded to whole clusters of two, and no
+    more than one split per 4 query tiles. The flow decoder at 2 patches (2 x
+    64 key tiles of 32 rows) gets 9 on 132 SMs, 1,152 blocks. ``head_dim``
+    does not change it: every width keeps 32 keys a block."""
+    key_tiles = -(-n_k // _WIDE_KEY_ROWS)
+    key_tiles = -(-key_tiles // _WIDE_CLUSTER) * _WIDE_CLUSTER
     q_tiles = -(-n_q // _WIDE_QUERY_ROWS)
-    want = -(-_WIDE_BLOCKS_PER_SM * sms // (batch_heads * key_tiles))
+    want = -(-_WIDE_WAVES * sms // (batch_heads * key_tiles))
     return max(1, min(want, -(-q_tiles // 4), 65535))
+
+
+def _wide_query_rows(n_q: int) -> int:
+    """The query rows of ``flash_backward_wide.cu``'s dS^T scratch: n_q
+    rounded up to whole query tiles, so that every row is 128-byte aligned
+    for TMA."""
+    return -(-n_q // _WIDE_QUERY_ROWS) * _WIDE_QUERY_ROWS
 
 
 def _check_aligned(tensors: dict, what: str) -> None:
@@ -437,7 +447,9 @@ def _launch_backward(q, k, v, pad_mask, causal, o, lse, do) -> Tuple[torch.Tenso
     raise: bfloat16 takes the tensor-core kernels (``flash_backward_mma``
     for heads of 64 and 128 channels, ``flash_backward_wide`` for 192 to
     512, whose dK/dV pass splits each key tile's queries over
-    ``wide_backward_splits`` blocks), float32 ``flash_attention_backward``."""
+    ``wide_backward_splits`` blocks and writes dS, as two bf16 terms, to a
+    scratch of 4 x B x H x Nk x Nq bytes that its dQ pass multiplies by K),
+    float32 ``flash_attention_backward``."""
     global backward_launches
     pad = _pad_bytes(pad_mask)
     _check_cuda({"q": q, "k": k, "v": v, "pad_mask": pad, "o": o, "lse": lse, "do": do}, q)
@@ -459,8 +471,9 @@ def _launch_backward(q, k, v, pad_mask, causal, o, lse, do) -> Tuple[torch.Tenso
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         splits = wide_backward_splits(b * h, n_q, k.shape[2], d, sms)
         ws = torch.empty(2 * b * h * splits * k.shape[2] * d, dtype=torch.float32, device=q.device)
+        ds = torch.empty(2 * b * h * k.shape[2] * _wide_query_rows(n_q), dtype=torch.bfloat16, device=q.device)
         name = "flash_backward_wide"
-        err = _wide_backward_entry()(*args[:8], ws.data_ptr(), *args[8:], splits, stream)
+        err = _wide_backward_entry()(*args[:8], ws.data_ptr(), ds.data_ptr(), *args[8:], splits, stream)
     else:
         name = "flash_attention_backward"
         err = _entries()[1](*args, stream)

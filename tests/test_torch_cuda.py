@@ -636,7 +636,7 @@ def test_wide_flash_backward_raises(card):
     assert not fl.flash_supported(576, 576, 128, 128, False, False)
 
 
-WIDE_BACKWARD_DIMS = [192, 256, 512]
+WIDE_BACKWARD_DIMS = [192, 256, 320, 384, 448, 512]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -644,11 +644,13 @@ WIDE_BACKWARD_DIMS = [192, 256, 512]
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_wide_flash_backward_matches_plain(card, monkeypatch, dtype, d, causal):
     """B1b at the wide heads (bf16: flash_backward_wide.cu, whose dK/dV
-    pass splits the queries over 3 blocks a key tile at these shapes;
+    pass splits the queries over 2 blocks a key tile at these shapes;
     float32: flash_attention.cu's 16 x 32 tiles) against autograd of the
     plain version, at ragged sizes with left-padded keys: dq, dk and dv
     within B1's limits, pad keys' dk and dv exact zeros, and (causal) the
-    queries that see no key exact-zero dq."""
+    queries that see no key exact-zero dq. 300 queries are 5 of the dQ
+    pass's 64-query tiles and 200 keys 7 of the dK/dV pass's 32-key tiles:
+    both passes' last cluster holds a spare block."""
     g = torch.Generator(card).manual_seed(d + causal)
     b, h, nq, nk = 2, 2, 300, 200
     q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).to(dtype)
@@ -664,7 +666,7 @@ def test_wide_flash_backward_matches_plain(card, monkeypatch, dtype, d, causal):
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(fl.splash_mha(*leaves, pad_mask=pad, causal=causal), leaves, do)
     torch.cuda.synchronize()
-    assert fl.wide_backward_splits(b * h, nq, nk, d, torch.cuda.get_device_properties(card).multi_processor_count) == 3
+    assert fl.wide_backward_splits(b * h, nq, nk, d, torch.cuda.get_device_properties(card).multi_processor_count) == 2
     assert (fl.backward_launches, fl.backward_launches_by_width[d]) == (before[0] + 1, before[1] + 1)
     last_key = nk - nq + torch.arange(nq, device=card) if causal else torch.full((nq,), nk - 1, device=card)
     blind = last_key < pad.sum(1, keepdim=True)  # (b, nq): every visible key is a pad
@@ -679,7 +681,7 @@ def test_wide_flash_backward_matches_plain(card, monkeypatch, dtype, d, causal):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wide_flash_backward_is_deterministic(card, dtype):
     """No atomics at D = 512 either: the backward twice on the same inputs
-    (left-padded keys, causal, the bf16 dK/dV pass over 6 query splits)
+    (left-padded keys, causal, the bf16 dK/dV pass over 3 query splits)
     gives the same bits."""
     g = torch.Generator(card).manual_seed(5)
     b, h, nq, nk, d = 2, 1, 700, 300, 512
@@ -693,6 +695,34 @@ def test_wide_flash_backward_is_deterministic(card, dtype):
     torch.cuda.synchronize()
     for x, y in zip(first, second):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [256, 320])
+def test_wide_flash_backward_spare_blocks_and_bits_repeat(card, d):
+    """The bf16 wide backward's clusters at ragged edges: 1,050 queries are
+    17 of the dQ pass's 64-query tiles and 720 keys 23 of the dK/dV pass's
+    32-key blocks (the last half full), so both passes' last cluster holds a
+    spare block; left-padded keys, causal (row 1's first queries see no
+    key). dq, dk and dv within B1's bf16 limit of the plain backward from
+    the same (o, lse), pad keys' dk and dv exact zeros, the queries that see
+    nothing exact-zero dq, and two runs the same bits."""
+    g = torch.Generator(card).manual_seed(d)
+    b, h, nq, nk = 2, 2, 1050, 720
+    q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).bfloat16()
+    k, v, do = (torch.randn(b, h, n, d, generator=g, device=card).bfloat16() for n in (nk, nk, nq))
+    pad = torch.arange(nk, device=card)[None, :] < torch.tensor([0, 300], device=card)[:, None]
+    o, lse = fl._forward_plain(q, k, v, pad, True)
+    want = fl._backward_plain(q, k, v, pad, True, o, lse, do)
+    first = fl._launch_backward(q, k, v, pad, True, o, lse, do)
+    second = fl._launch_backward(q, k, v, pad, True, o, lse, do)
+    torch.cuda.synchronize()
+    for x, y in zip(first, want):
+        torch.testing.assert_close(x.float(), y.float(), **_flash_limit(y, torch.bfloat16))
+    at = pad[:, None, :, None].expand_as(first[1])
+    assert (first[1][at] == 0).all() and (first[2][at] == 0).all()
+    blind = torch.isneginf(lse)  # (b, h, nq): every visible key is a pad
+    assert blind.any() and (first[0][blind] == 0).all()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_optical_flow_b1a_counts_and_cpu_agreement(card):

@@ -483,27 +483,66 @@ def _kernel_terms(x, terms):
 
 def _wide_tiles(d):
     """csrc/flash_backward_wide.cu's tiles at head width d, read from the
-    source: the dK/dV pass's resident key rows (dkdv_rows) and streamed
-    query rows (kDkdvCols), the dQ pass's resident query rows (kDqRows) and
-    streamed key rows (dq_cols)."""
+    source: the dK/dV pass's resident key rows (kDkdvKeys) and streamed
+    query rows (kDkdvCols), the dQ pass's query rows (kDqRows) and streamed
+    key rows (kDqKeys); both passes pair neighbouring blocks in a cluster
+    (kClusterBlocks). The dQ pass multiplies the dS the dK/dV pass wrote, so
+    its key tiles are the dK/dV pass's key blocks."""
     src = WIDE_KERNEL_SOURCE.read_text()
+    return dict(rows=_constant(src, "kDkdvKeys"), cols=_constant(src, "kDkdvCols"),
+                dq_rows=_constant(src, "kDqRows"), dq_cols=_constant(src, "kDqKeys"),
+                pair=_constant(src, "kClusterBlocks"))
 
-    def by_width(name):  # ``return D <= a ? x : D <= b ? y : z;``
-        body = re.search(rf"{name}\(\) \{{\s*return ([^;]+);", src).group(1)
-        for bound, value in re.findall(r"D <= (\d+) \? (\d+) :", body):
-            if d <= int(bound):
-                return int(value)
-        return int(body.rsplit(":", 1)[1])
 
-    def constant(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+def _constant(src, name):
+    """``constexpr int name = value;`` of the source, value a number or
+    another such constant's name."""
+    value = re.search(rf"constexpr int {name} = (\w+);", src).group(1)
+    return int(value) if value.isdigit() else _constant(src, value)
 
-    return dict(rows=by_width("dkdv_rows"), cols=constant("kDkdvCols"), dq_rows=constant("kDqRows"),
-                dq_cols=by_width("dq_cols"))
+
+def _by_width(src, name, d):
+    """A ``constexpr int name<D>()`` of the source whose body is ``return D <=
+    a ? x : D <= b ? y : z;`` (or a plain number), at head width d."""
+    body = re.search(rf"{name}\(\) \{{\s*return ([^;]+);", src).group(1)
+    for bound, value in re.findall(r"D <= (\d+) \? (\d+) :", body):
+        if d <= int(bound):
+            return int(value)
+    return int(body.rsplit(":", 1)[-1])
+
+
+def _wide_backward_design(d):
+    """csrc/flash_backward_wide.cu's budget at head width d, read from the
+    source: each pass's stages and shared-memory bytes (``dkdv_smem_bytes``
+    and ``dq_smem_bytes`` evaluated at its tiles), each consumer's output
+    boxes (``out_boxes``), the float32 accumulators a thread of consumer 0
+    holds (an m64nN wgmma keeps N / 2 a thread: dK/dV's dK^T and dV^T over
+    its boxes, and its S and dP over half the block's keys; dQ's over its
+    boxes), and the setmaxnreg registers of the producer and the consumers."""
+    src = WIDE_KERNEL_SOURCE.read_text()
+    tiles = _wide_tiles(d)
+    stages = {"dkdv": _by_width(src, "dkdv_stages", d), "dq": _by_width(src, "dq_stages", d)}
+    body = re.search(r"out_boxes\(int c\) \{\s*return c == 0 \? ([^:]+) : ([^;]+);", src)
+    boxes = [eval(e.replace("D", str(d)).replace("/", "//")) for e in body.groups()]
+
+    def smem(name):
+        expr = re.search(rf"constexpr size_t {name}_smem_bytes\(\) \{{[^\n]*\n\s*return ([^;]+);", src).group(1)
+        for word, value in (("sizeof(bf16)", 2), ("sizeof(uint64_t)", 8), ("dkdv_stages<D>()", stages["dkdv"]),
+                            ("dq_stages<D>()", stages["dq"]), ("kDkdvKeys", tiles["rows"]),
+                            ("kDkdvCols", tiles["cols"]), ("kDqKeys", tiles["dq_cols"]),
+                            ("kTerms", _constant(src, "kTerms")), ("D", d)):
+            expr = expr.replace(word, str(value))
+        return eval(" ".join(expr.replace("/", "//").split()))
+
+    accumulators = {"dkdv": 2 * boxes[0] * tiles["rows"] // 2 + 2 * (tiles["rows"] // 2) // 2,
+                    "dq": 64 * boxes[0] // 2}
+    return dict(stages=stages, smem={"dkdv": smem("dkdv"), "dq": smem("dq")}, boxes=boxes,
+                accumulators=accumulators, producer_regs=_constant(src, "kProducerRegs"),
+                consumer_regs=_constant(src, "kConsumerRegs"))
 
 
 def _bf16_backward_arithmetic(q, k, v, pad, causal, o, lse, do, terms, rows=128, cols=None, dq_rows=None,
-                              dq_cols=None, splits=1):
+                              dq_cols=None, splits=1, pair=1):
     """The bf16 backward's arithmetic (csrc/flash_backward_mma.cu, or with
     ``_wide_tiles`` and ``splits`` csrc/flash_backward_wide.cu) in plain
     float32 PyTorch: delta = rowsum(dO * O) from the float32 O; the dK/dV
@@ -512,9 +551,12 @@ def _bf16_backward_arithmetic(q, k, v, pad, causal, o, lse, do, terms, rows=128,
     tiles whose float32 partial sums are added in split order; the dQ pass
     over ``dq_rows``-query blocks and the ``dq_cols``-key tiles up to
     theirs (by default flash_backward_mma.cu's: 128-row blocks, tiles of 64
-    rows, 32 at D 128); P and dS go into their products in ``terms`` bf16
-    terms (0: unrounded); pad keys' dK and dV are zeros. Returns (dq, dk,
-    dv) in float32, before the kernel's cast to bf16."""
+    rows, 32 at D 128); with ``pair`` blocks in a cluster, each dK/dV block
+    streams from the pair's first tile (the tiles before its own add exact
+    zeros) and each dQ block's tiles stop at its own bound; P and dS go into
+    their products in ``terms`` bf16 terms (0: unrounded); pad keys' dK and
+    dV are zeros. Returns (dq, dk, dv) in float32, before the kernel's cast
+    to bf16."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     b, h, nq, d = q.shape
     nk = k.shape[2]
@@ -537,7 +579,8 @@ def _bf16_backward_arithmetic(q, k, v, pad, causal, o, lse, do, terms, rows=128,
         ks = slice(k0, k0 + rows)
         for q_lo in range(0, split_len * splits, split_len):
             part_k, part_v = torch.zeros(b, h, len(range(nk)[ks]), d), torch.zeros(b, h, len(range(nk)[ks]), d)
-            q_begin = max(q_lo, max(0, k0 - off) // cols * cols) if causal else q_lo
+            pair_k0 = k0 // (rows * pair) * (rows * pair)  # the cluster's first key
+            q_begin = max(q_lo, max(0, pair_k0 - off) // cols * cols) if causal else q_lo
             for q0 in range(q_begin, min(nq, q_lo + split_len), cols):
                 qs = slice(q0, q0 + cols)
                 p, ds = p_ds(qs, ks)
@@ -662,20 +705,112 @@ def test_rounding_budget_of_the_bf16_backward_at_512_channels():
         assert ((x.bfloat16().float() - y).abs() <= limit).all(), key
 
 
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [192, 256, 512])
+def test_wide_backward_emulation_within_b1_limits(d, causal):
+    """The wide backward's arithmetic (csrc/flash_backward_wide.cu's tiles
+    and cluster pairs read from the source, the dK/dV pass over 3 query
+    splits, P and dS in two bf16 terms, the dQ pass multiplying that dS by
+    K over the dK/dV pass's key blocks) against autograd of the plain
+    version at a ragged, left-padded shape (200 queries over 300 keys, one
+    row's first 120 keys padding; causal, that row's first queries see no
+    key): dq, dk and dv cast to bf16 within B1's bf16 limit (0.03 x RMS plus
+    one bf16 step); pad keys' dk and dv, and the blind queries' dq, exact
+    zeros."""
+    rs = np.random.RandomState(10 * d + causal)
+    b, h, nq, nk = 2, 1, 200, 300
+    q = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32) * d**-0.5).bfloat16()
+    k, v = (torch.from_numpy(rs.randn(b, h, nk, d).astype(np.float32)).bfloat16() for _ in range(2))
+    do = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32)).bfloat16()
+    pad = torch.arange(nk)[None, :] < torch.tensor([0, 120])[:, None]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fl.flash_attention_reference(*leaves, pad_mask=pad, causal=causal), leaves, do)
+    o, lse = fl._forward_plain(q, k, v, pad, causal)
+    got = _bf16_backward_arithmetic(q, k, v, pad, causal, o, lse, do, 2, splits=3, **_wide_tiles(d))
+    for key, x, y in zip(("dq", "dk", "dv"), got, want):
+        y = y.float()
+        limit = 0.03 * y.pow(2).mean().sqrt() + 2.0**-7 * y.abs()
+        assert ((x.bfloat16().float() - y).abs() <= limit).all(), key
+    at = pad[:, None, :, None].expand_as(got[1])
+    assert (got[1][at] == 0).all() and (got[2][at] == 0).all()
+    blind = torch.isneginf(lse)
+    assert blind.any() == causal and (got[0][blind] == 0).all()
+
+
+def test_wide_backward_emulation_matches_interpreted_splash():
+    """The wide backward's arithmetic at D 320 (an odd box count) against
+    ``jax.grad`` through JAX's splash in interpret mode on the same
+    bf16-valued inputs, causal with padding keys, 128 queries over 256 keys:
+    dq, dk and dv with P and dS in two bf16 terms, cast to bf16, within B1's
+    bf16 limit of splash's gradients."""
+    rs = np.random.RandomState(13)
+    d = 320
+    q, k, v = (rs.randn(2, 1, n, d).astype(np.float32) * s for n, s in ((128, d**-0.5), (256, 1.0), (256, 1.0)))
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    do = torch.from_numpy(rs.randn(2, 1, 128, d).astype(np.float32)).bfloat16()
+    pad = np.arange(256)[None, :] < np.array([0, 45])[:, None]
+
+    def loss(q, k, v):
+        out = jax_splash_mha(q, k, v, pad_mask=jnp.asarray(pad), causal=True, interpret=True)
+        return jnp.sum(out * jnp.asarray(do.float().numpy()))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    o, lse = fl._forward_plain(q, k, v, torch.from_numpy(pad), True)
+    got = _bf16_backward_arithmetic(q, k, v, torch.from_numpy(pad), True, o, lse, do, 2, splits=2, **_wide_tiles(d))
+    for key, x, w in zip(("dq", "dk", "dv"), got, want):
+        y = torch.from_numpy(np.array(w))
+        limit = 0.03 * y.pow(2).mean().sqrt() + 2.0**-7 * y.abs()
+        assert ((x.bfloat16().float() - y).abs() <= limit).all(), key
+
+
 def test_wide_backward_splits_fill_the_card():
     """The wide dK/dV pass's query splits: the flow decoder at 2 patches
-    (64 key tiles of 32 rows a patch) gets 5 on 132 SMs, 640 blocks; a short
-    query range is never cut below 4 query tiles a split; heads up to 256
-    take 64-key tiles. The wrapper's tiles are the kernel source's."""
+    (64 key tiles of 32 rows a patch) gets 9 on 132 SMs, 1,152 blocks of one
+    an SM (8.7 waves); 1 patch 17; a short query range is never cut below 4
+    query tiles a split; an odd key-tile count is padded to whole clusters.
+    The wrapper's tiles are the kernel source's at every width."""
     for d in range(192, fl.MAX_HEAD_DIM + 1, 64):
         tiles = _wide_tiles(d)
-        assert (fl._wide_key_rows(d), fl._WIDE_QUERY_ROWS) == (tiles["rows"], tiles["cols"]), d
-    assert [_wide_tiles(d)["rows"] for d in (256, 320)] == [64, 32]
-    assert [_wide_tiles(d)["dq_cols"] for d in (256, 384, 448)] == [64, 32, 16]
-    assert fl.wide_backward_splits(2, 182_528, 2048, 512, 132) == 5
+        assert (fl._WIDE_KEY_ROWS, fl._WIDE_QUERY_ROWS, fl._WIDE_CLUSTER) == (
+            tiles["rows"], tiles["cols"], tiles["pair"]), d
+    assert [_wide_tiles(d)["dq_cols"] for d in (192, 512)] == [32, 32]
+    assert fl.wide_backward_splits(2, 182_528, 2048, 512, 132) == 9
+    assert fl.wide_backward_splits(1, 182_528, 2048, 512, 132) == 17
     assert fl.wide_backward_splits(1, 128, 256, 512, 132) == 1
-    assert fl.wide_backward_splits(2, 300, 200, 256, 132) == 3
-    assert fl.wide_backward_splits(1, 4096, 2048, 256, 132) == 17
+    assert fl.wide_backward_splits(2, 300, 200, 256, 132) == 2
+    assert fl.wide_backward_splits(1, 4096, 2048, 256, 132) == 16
+    assert fl.wide_backward_splits(1, 4096, 2016, 256, 132) == 16  # 63 key tiles, padded to 64
+
+
+@pytest.mark.parametrize("d", [192, 256, 320, 384, 448, 512])
+def test_wide_backward_design_fits_the_card(d):
+    """Each width of csrc/flash_backward_wide.cu, read from the source: both
+    passes' shared memory (dK/dV: K and V of the block's keys, its stages of
+    Q and dO, the double-buffered P^T and dS^T terms; dQ: its stages of
+    dS^T terms and K; the mbarriers and 1 KB of alignment slack) fits the
+    232,448 bytes a block may have and equals the header's table, as do the
+    stages and consumer 0's accumulators; those stay well within the
+    consumers' setmaxnreg registers (at least 64 left for addresses, masks
+    and the P and dS terms), and the producer's and consumers' registers fit
+    the SM's 65,536; the output boxes cover D, each wgmma N (64 x boxes in
+    dQ, the 32 keys in dK/dV, 16 in its scores) a multiple of 8 no wider than
+    256; a multicast half of a streamed tile is a whole number of 8-row
+    swizzle atoms."""
+    design, tiles = _wide_backward_design(d), _wide_tiles(d)
+    row = re.search(rf"//   D {d}: dK/dV (\d) stages?, ([\d,]+) bytes, (\d+) \+ (\d+) \+ (\d+) accumulators; "
+                    rf"dQ (\d) stages, ([\d,]+) bytes, (\d+) accumulators", WIDE_KERNEL_SOURCE.read_text())
+    n = [int(x.replace(",", "")) for x in row.groups()]
+    assert n[:2] == [design["stages"]["dkdv"], design["smem"]["dkdv"]]
+    assert n[5:7] == [design["stages"]["dq"], design["smem"]["dq"]]
+    assert [sum(n[2:5]), n[7]] == [design["accumulators"]["dkdv"], design["accumulators"]["dq"]]
+    for name in ("dkdv", "dq"):
+        assert design["smem"][name] <= SMEM_PER_BLOCK and design["stages"][name] >= 1
+        assert design["accumulators"][name] + 64 <= design["consumer_regs"], name
+    assert 128 * design["producer_regs"] + 256 * design["consumer_regs"] <= 65_536
+    assert sum(design["boxes"]) == d // 64 and min(design["boxes"]) >= 1 and 64 * max(design["boxes"]) <= 256
+    assert tiles["rows"] % 16 == 0 and tiles["rows"] <= 256 and tiles["dq_cols"] == tiles["rows"]
+    assert tiles["cols"] // 2 % 8 == 0 and tiles["dq_cols"] // 2 % 8 == 0
 
 
 def test_wrapper_checks_shapes():
