@@ -14,9 +14,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
   1. device         CUDA with compute capability (9, 0); the card's name and power limit
   2. build          one nvcc per perceiver_io_torch/csrc/*.cu, all started together:
                     seconds and ptxas lines per source; B1a and B1b wide's
-                    registers and spills by instantiation (a spill fails the
-                    run) and the count of ptxas notes that each source's
-                    wgmma were serialised
+                    and B1a float32's registers and spills by instantiation
+                    (a spill fails the run) and the count of ptxas notes
+                    that each source's wgmma were serialised
   3. kernel_check   each kernel vs its plain version at the main paths'
                     shapes: f32 max error 1e-4; bf16 and quantized pools 0.03 x
                     the RMS of the plain output; times, the least time the
@@ -39,10 +39,16 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     csrc/flash_backward_mma.cu on the tensor cores, with P
                     in two bf16 terms where B1b reads the forward's output
                     and in one without gradients (held and timed too); in
-                    float32 both run csrc/flash_attention.cu) at the
+                    float32 B1a runs csrc/flash_forward_f32.cu, three TF32
+                    products on the tensor cores, and B1b
+                    csrc/flash_attention.cu) at the
                     flagship cross- and self-attention and the 30M
                     cross-attention (left-padded) shapes, pad keys' gradients
-                    exact zeros, two backward runs bit-identical; B5
+                    exact zeros, two backward runs bit-identical (in float32
+                    the forward too), and at the flagship cross-attention
+                    the float32 output's error against the float64 plain
+                    version within F32_CLASS_FACTOR (4) x the plain float32
+                    version's; B5
                     (ring_block_forward, ring attention's fully visible
                     blocks: B1a's entry, in bf16 with P in two terms) at
                     clm_8k's cross- and
@@ -60,7 +66,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     over 2,048 latents (csrc/flash_forward_wide.cu in bf16,
                     which writes a bf16 output here), checked at 1 patch
                     and at 6 (patch by patch), each twice for the same
-                    bits, and timed at 6, and the 24
+                    bits, and timed at 6 and at 1 (in float32, one patch a
+                    call is the default-dtype pipeline's; there also the
+                    float32-class check against float64), and the 24
                     self-attention layers' 8 x 64 over 2,048 x 2,048 at 6
                     patches; bf16 within 0.03 x the plain output's RMS plus
                     one bf16 step, f32 within 1e-4; the library call's
@@ -79,13 +87,17 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     at the train step's 2 (patch by patch), timed at 2 with
                     each pass's device ms (delta, dK/dV, reduce, dQ), D =
                     192 and 256 in bf16 and f32 at a left-padded causal
-                    shape, and D = 320 in bf16 at one whose query and key
+                    shape (in f32 the forward too: o and lse within 1e-4,
+                    two runs the same bits, timed), and D = 320 in bf16 at one whose query and key
                     tiles both leave a spare block in their last cluster;
                     dq, dk and dv against the plain backward within
                     flash_limit, pad keys' dk and dv exact zeros, two runs
                     the same bits;
                     the library call F.scaled_dot_product_attention forward
-                    and backward timed with its kernels named, or its error
+                    and backward timed with its kernels named, or its error;
+                    every float32 forward's bound at 165 TFLOP/s (three
+                    TF32 products) has its bound at the CUDA cores' 67
+                    beside it
   4. main_path      flagship generation in bf16 at batch 8 through generate():
                     greedy, rolling window, chunked, left-padded, each REPEATS
                     times; prefill and the decode loop are timed apart inside
@@ -132,7 +144,11 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     (ms, synced) and REPEATS pipeline calls (frame pairs/s),
                     medians and spreads, and the peak memory; B1a exactly 24
                     launches a forward at D = 64 and 1 at D = 512; the flow
-                    finite, of shape (436, 1024, 2)
+                    finite, of shape (436, 1024, 2); then the same model at
+                    its default dtype (float32) one patch a call, as the
+                    pipeline's default micro-batch: ms a pair and a patch,
+                    B1a in float32 only (csrc/flash_forward_f32.cu), 24
+                    launches a patch at D = 64 and 1 at D = 512
      train_flow     the same model with activation checkpointing, AdamW at
                     1e-3 with clipping at 1.0, through scripts/convergence.py's
                     flow train step on a micro-batch of 2 seeded 368 x 496
@@ -213,7 +229,10 @@ from perceiver_io_torch.training.trainer import (TrainState, build_optimizer, ma
                                                  make_causal_lm_train_step, trainable)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores (the kernel's arithmetic)
+# H100 SXM: float32-class products on the tensor cores, three TF32 products
+# each (495 TFLOP/s TF32 / 3); beside it float32 outside the tensor cores
+F32_FLOP_PER_S = 495e12 / 3
+F32_CUDA_CORE_FLOP_PER_S = 67e12
 SEED = 0
 DEVICE = "cuda"
 REPEATS = 3  # generate() calls per main-path run, and engine runs per pool mode; medians and spreads are printed
@@ -298,7 +317,7 @@ def byte_bound(b, h, d, r, cap, n_q, esize, pads):
     live_slots = sum(cap - p for p in pads)
     nbytes = live_slots * (2 * h * d * esize + r * 4 + 1) + 2 * b * h * n_q * d * esize + 2 * b * 4
     flops = live_slots * h * (3 * r + 4 * n_q * d)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_CUDA_CORE_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -412,7 +431,7 @@ def paged_bound(h, d, r, ps, window, pool, q, start, live):
     if pool in ("int8", "int4"):
         nbytes += pages * 2 * h * 4
     flops = rows * h * (3 * r + 6 * d)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_CUDA_CORE_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -611,7 +630,9 @@ def check_flash_kernel():
     """B1a (forward) and B1b (backward) against the plain version and its
     autograd gradients at the training path's shapes, causal, in float32 and
     bfloat16; pad keys' dK and dV must be exact zeros, and two backward runs
-    on the same inputs the same bits (no atomics). Times per call: the
+    on the same inputs the same bits (no atomics; in float32 the forward
+    too), and at the flagship cross-attention the float32 output
+    float32-class (f32_class_check). Times per call: the
     forward, the backward alone (from a saved forward) and both, for the
     kernel, the plain version and F.scaled_dot_product_attention with the
     same boolean mask (a yardstick, used nowhere in the port)."""
@@ -636,6 +657,8 @@ def check_flash_kernel():
                 if not (diff <= atol + rtol * y.float().abs()).all():
                     raise AssertionError(f"flash {name} {dtype} {key}: kernel vs plain max error {errs[key]} "
                                          f"(atol {atol}, rtol {rtol})")
+            f32_class = (f32_class_check(name, got.detach(), want.detach(), q, k, v, pad, True)
+                         if dtype == torch.float32 and name == "flagship_cross_attention" else {})
             if dtype == torch.bfloat16:  # a forward without gradients: P in one bf16 term
                 with torch.no_grad():
                     one = fl.splash_mha(q, k, v, pad_mask=pad, causal=True).float()
@@ -658,6 +681,8 @@ def check_flash_kernel():
 
             # saved forward for the backward-alone timings
             o, lse = fl._launch_forward(q, k, v, pad, True)
+            if dtype == torch.float32 and not all(map(torch.equal, (o, lse), fl._launch_forward(q, k, v, pad, True))):
+                raise AssertionError(f"flash {name} {dtype}: two forward runs on the same inputs differ")
             first, second = (fl._launch_backward(q, k, v, pad, True, o, lse, do) for _ in range(2))
             if not all(torch.equal(x, y) for x, y in zip(first, second)):
                 raise AssertionError(f"flash {name} {dtype}: two backward runs on the same inputs differ")
@@ -691,7 +716,10 @@ def check_flash_kernel():
                        queries=nq, keys=nk, head_dim=d, visible_pairs=pairs, max_abs_err=errs, limits=limits,
                        grad_err_vs_plain_fa2_arithmetic=errs_fa2, backward_bit_identical=True,
                        bound_ms=bounds["forward"][0], bound_by=bounds["forward"][1],
-                       backward_bound_ms=bounds["backward"][0], backward_bound_by=bounds["backward"][1], **times)
+                       backward_bound_ms=bounds["backward"][0], backward_bound_by=bounds["backward"][1], **times,
+                       **f32_class)
+            if dtype == torch.float32:
+                rec["bound_ms_cuda_cores"] = cuda_core_bound_ms(bounds["forward"][0], 4 * d * pairs)
             emit(phase="kernel_check", **rec)
             records.append(rec)
             del leaves, ref_leaves, lib_leaves, got_grads, want_grads, want, lib_out
@@ -741,14 +769,17 @@ def check_flow_flash_kernel():
     inference path calls it (no gradients: in bf16 P in one bf16 term),
     against its plain version: bf16 within 0.03 x the plain output's RMS
     plus one bf16 step of the element (flash_limit), f32 within 1e-4. The
-    decoder's shape is checked at 1 patch in both types and, in bf16, at the
-    main path's 6 patches: the six-patch launch is held patch by patch
-    against the plain version of each patch (its float32 scores of six
-    patches at once are 9 GB a copy). It is timed at 6: the kernel and the
-    library call at 6 patches and at 1, the plain version at 1 and over the
-    6 patches one patch a call. F.scaled_dot_product_attention is the
-    library yardstick, used nowhere in the port; the kernels it launched are
-    named (PyTorch's flash backend takes heads up to 256 channels)."""
+    decoder's shape is checked at 1 patch and at the main path's 6 patches:
+    the six-patch launch is held patch by patch against the plain version of
+    each patch (its float32 scores of six patches at once are 9 GB a copy);
+    in float32 its patch is also held to float32-class accuracy
+    (f32_class_check). It is timed at 6 and at 1 (in float32 the
+    default-dtype pipeline's call): the kernel and the library call at 6
+    patches and at 1, the plain version at 1 and over the 6 patches one
+    patch a call. F.scaled_dot_product_attention is the library yardstick,
+    used nowhere in the port; the kernels it launched are named (PyTorch's
+    flash backend takes heads up to 256 channels). Float32 bounds have their
+    CUDA-core bound beside them."""
     g = torch.Generator(DEVICE).manual_seed(SEED + 10)
     records = []
     for name, (b, h, nq, nk, d) in FLOW_FLASH_SHAPES.items():
@@ -771,21 +802,26 @@ def check_flow_flash_kernel():
             if not (diff <= atol + rtol * want.float().abs()).all():
                 raise AssertionError(f"flash {name} {dtype}: kernel vs plain max error {err} (atol {atol}, "
                                      f"rtol {rtol})")
-            del got, want, diff
+            del diff
+            f32_class = (f32_class_check(name, got, want, q, k, v, None, False)
+                         if decoder and dtype == torch.float32 else {})
+            del got, want
             esize = torch.finfo(dtype).bits // 8
             rec = dict(kernel="splash_mha", shape=name, dtype=str(dtype).removeprefix("torch."), batch=b,
                        checked_batch=nb, heads=h, queries=nq, keys=nk, head_dim=d, mask="full",
                        max_abs_err=err, limits=(atol, rtol), bit_identical=True,
                        ms_checked_batch=time_ms(lambda: fl._launch_forward(q, k, v, None, False, split_p=False)),
                        plain_ms_checked_batch=time_ms(lambda: fl.flash_attention_reference(q, k, v), reps=5),
-                       library_ms_checked_batch=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)))
-            if decoder and dtype == torch.bfloat16:  # the main path's six patches
+                       library_ms_checked_batch=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)),
+                       **f32_class)
+            if decoder:  # six patches
                 patches = [flash_case(1, h, nq, nk, d, None, dtype, g)[:3] for _ in range(b)]
                 q6, k6, v6 = (torch.cat(ts) for ts in zip(*patches))
                 o6 = fl._launch_forward(q6, k6, v6, None, False, split_p=False)[0]
-                if o6.dtype != torch.bfloat16 or not torch.equal(
+                if o6.dtype != dtype or not torch.equal(
                         o6, fl._launch_forward(q6, k6, v6, None, False, split_p=False)[0]):
-                    raise AssertionError(f"flash {name} at {b} patches: not a bf16 output, or two runs differ")
+                    raise AssertionError(f"flash {name} {dtype} at {b} patches: not a {dtype} output, or two runs "
+                                         "differ")
                 errs6 = []
                 for i, patch in enumerate(patches):
                     want = fl.flash_attention_reference(*patch)
@@ -806,13 +842,16 @@ def check_flow_flash_kernel():
                     library_kernels=cuda_kernel_names(lambda: F.scaled_dot_product_attention(q6, k6, v6,
                                                                                              scale=1.0)))
                 del patches, q6, k6, v6
-            elif dtype == torch.bfloat16:
+            else:
                 rec.update(ms=rec["ms_checked_batch"], plain_ms=rec["plain_ms_checked_batch"],
                            library_ms=rec["library_ms_checked_batch"],
                            library_kernels=cuda_kernel_names(lambda: F.scaled_dot_product_attention(q, k, v,
                                                                                                     scale=1.0)))
             rec["bound_ms"], rec["bound_by"] = full_mask_bound(b, h, nq, nk, d, esize)
-            rec["bound_ms_checked_batch"] = full_mask_bound(nb, h, nq, nk, d, esize)[0]
+            rec["bound_ms_checked_batch"], rec["bound_by_checked_batch"] = full_mask_bound(nb, h, nq, nk, d, esize)
+            if dtype == torch.float32:
+                for key, batch in (("bound_ms", b), ("bound_ms_checked_batch", nb)):
+                    rec[f"{key}_cuda_cores"] = cuda_core_bound_ms(rec[key], 4 * d * batch * h * nq * nk)
             emit(phase="kernel_check", **rec)
             records.append(rec)
             del q, k, v
@@ -901,6 +940,38 @@ def check_wide_forward_kernel():
     return records
 
 
+# ------------------------- phase 3: B1a in float32 (csrc/flash_forward_f32.cu)
+# The float32-class limit: the float32 forward's error against the float64
+# plain version at most this many times the plain float32 version's (TF32
+# off). On an H100 the kernel read 0.44-0.93 x, its first build (one chain of
+# the tensor cores' truncating sums over D and every key) 6.13-8.69 x, one
+# TF32 term 250-2,000 x.
+F32_CLASS_FACTOR = 4
+
+
+def f32_class_check(name, got, want, q, k, v, pad, causal):
+    """The float32-class check of a float32 forward's output ``got`` (the
+    plain float32 version's is ``want``): its error against the float64
+    plain version within F32_CLASS_FACTOR x the plain float32 version's.
+    Returns the record's fields."""
+    ref = fl._forward_plain(q.double(), k.double(), v.double(), pad, causal)[0]
+    err_kernel = (got.double() - ref).abs().max().item()
+    err_plain = (want.double() - ref).abs().max().item()
+    del ref
+    if not err_kernel <= F32_CLASS_FACTOR * err_plain:
+        raise AssertionError(f"f32 forward {name}: error vs float64 {err_kernel} is more than {F32_CLASS_FACTOR} x "
+                             f"the plain float32 version's {err_plain}")
+    return dict(err_vs_float64=err_kernel, plain_f32_err_vs_float64=err_plain,
+                err_ratio=err_kernel / max(err_plain, 1e-30), err_ratio_limit=F32_CLASS_FACTOR)
+
+
+def cuda_core_bound_ms(bound_ms, flops):
+    """A float32 bound at the CUDA cores' rate, printed beside the tensor
+    cores' ``bound_ms``: the larger of its bytes time and ``flops`` over
+    F32_CUDA_CORE_FLOP_PER_S."""
+    return max(bound_ms, flops / F32_CUDA_CORE_FLOP_PER_S * 1e3)
+
+
 # ------------------------------- phase 3: B1b at the optical-flow decoder's head
 WIDE_BACKWARD_SHAPES = {  # name: (batch, heads, queries, keys, head dim, left pads of the keys per row or None, causal)
     # official_41m_config's decoder in the train step: 182,528 pixels over
@@ -950,8 +1021,11 @@ def check_wide_backward_kernel():
     and the library yardstick F.scaled_dot_product_attention: its backward
     from a saved forward, and forward + backward, with the CUDA kernels it
     ran named, or the error it raised, and each pass's device ms); D 192 and
-    256 in bf16 and f32 at a left-padded causal shape; D 320 in bf16 at a
-    left-padded causal shape whose query and key tiles both leave a spare
+    256 in bf16 and f32 at a left-padded causal shape (in f32 B1a's forward
+    too: o and lse within F32_ATOL of the plain version, rows that see no
+    key exact zeros, two runs the same bits, timed beside the plain version,
+    the library call and its bound at both float32 rates); D 320 in bf16 at
+    a left-padded causal shape whose query and key tiles both leave a spare
     block in their last cluster. Times per call, L2 flushed."""
     g = torch.Generator(DEVICE).manual_seed(SEED + 11)
     records = []
@@ -1048,9 +1122,37 @@ def check_wide_backward_kernel():
                 rec["bound_ms_checked_batch"] = full_mask_bound(nb, h, nq, nk, d, esize, backward=True)[0]
             else:  # causal: flash_bounds counts the visible pairs
                 bounds, pairs = flash_bounds(q, k, pad, esize)
+                mask = fl._visibility(nq, nk, pad, causal, q.device).contiguous()
+                lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask, scale=1.0)
                 rec.update(ms=time_ms(lambda: fl._launch_backward(q, k, v, pad, causal, o, lse, do)),
                            plain_ms=time_ms(lambda: fl._backward_plain(q, k, v, pad, causal, o, lse, do)),
-                           visible_pairs=pairs, bound_ms=bounds["backward"][0], bound_by=bounds["backward"][1])
+                           library_ms=time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True)),
+                           library_note="backward from a saved forward",
+                           visible_pairs=pairs, bound_ms=bounds["backward"][0], bound_by=bounds["backward"][1],
+                           ops_ms_cuda_cores=10 * d * pairs / F32_CUDA_CORE_FLOP_PER_S * 1e3
+                           if dtype == torch.float32 else None)
+                if dtype == torch.float32:  # B1a's float32 forward on the same inputs
+                    fo, flse = fl._launch_forward(q, k, v, pad, causal)
+                    again = fl._launch_forward(q, k, v, pad, causal)
+                    finite = torch.isfinite(lse)
+                    if not (torch.equal(fo, again[0]) and torch.equal(flse, again[1])
+                            and torch.equal(torch.isfinite(flse), finite) and (fo[~finite] == 0).all()):
+                        raise AssertionError(f"f32 forward {name}: two runs differ, or its rows that see no key are "
+                                             "not zeros and -inf")
+                    ferrs = {"o": (fo - o).abs().max().item(),
+                             "lse": (flse[finite] - lse[finite]).abs().max().item()}
+                    if not max(ferrs.values()) <= F32_ATOL:
+                        raise AssertionError(f"f32 forward {name}: kernel vs plain max error {ferrs} (atol {F32_ATOL})")
+                    del fo, flse, again
+                    rec.update(forward_max_abs_err=ferrs, forward_bit_identical=True,
+                               forward_ms=time_ms(lambda: fl._launch_forward(q, k, v, pad, causal)),
+                               forward_plain_ms=time_ms(lambda: fl._forward_plain(q, k, v, pad, causal)),
+                               forward_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                                   q, k, v, attn_mask=mask, scale=1.0)),
+                               forward_bound_ms=bounds["forward"][0], forward_bound_by=bounds["forward"][1],
+                               forward_bound_ms_cuda_cores=cuda_core_bound_ms(bounds["forward"][0], 4 * d * pairs))
+                del mask, lib_leaves, lib_out
             emit(phase="kernel_check", **rec)
             records.append(rec)
             del q, k, v, do, o, lse
@@ -1132,6 +1234,8 @@ def check_ring_block_kernel():
                        plain_ms=time_ms(lambda: fl._forward_plain(q, k, v, pad, False)),
                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)),
                        library_returns="output only, no log-sum-exp", bound_ms=bound, bound_by=bound_by)
+            if dtype == torch.float32:
+                rec["bound_ms_cuda_cores"] = cuda_core_bound_ms(bound, 4 * d * pairs)
             emit(phase="kernel_check", **rec)
             records.append(rec)
             del q, k, v, o, lse, want_o, want_lse
@@ -1426,9 +1530,57 @@ def optical_flow():
         raise AssertionError(f"optical flow: B1a launches {counts}, expected {expected}; others {others}")
     if flow.shape != (1, *FLOW_IMAGE, 2) or not np.isfinite(flow).all():
         raise AssertionError(f"optical flow: flow of shape {flow.shape}, finite: {np.isfinite(flow).all()}")
-    del model, pipe, x
+    del model, pipe
     torch.cuda.empty_cache()
-    return counts
+    return counts, optical_flow_default_dtype(cfg, x)
+
+
+def optical_flow_default_dtype(cfg, x):
+    """The same model at its default dtype (its parameters', float32; TF32
+    off), one patch a call as OpticalFlowPipeline's default micro-batch of
+    1: REPEATS passes over the pair's six preprocessed patches, each patch
+    a synced forward (ms a pair, ms a patch). Every count is zeroed just
+    before and read just after: B1a must run in float32 only, 24 times a
+    patch at D = 64 and once at D = 512 (csrc/flash_forward_f32.cu), and
+    nothing else launch; the flows finite. Returns B1a's float32
+    launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers = cfg.encoder.num_self_attention_layers_per_block
+    model = OpticalFlow(cfg, device=DEVICE, seed=SEED)
+    patches = x.float()
+    with torch.inference_mode():
+        model(patches[:1])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    fl.forward_launches_by_width.clear()
+    torch.cuda.reset_peak_memory_stats()
+    pair_ms, finite = [], True
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        for i in range(len(patches)):
+            with torch.inference_mode():
+                out = model(patches[i:i + 1])
+            torch.cuda.synchronize()
+            finite = finite and bool(torch.isfinite(out).all())
+        pair_ms.append((time.perf_counter() - t0) * 1e3)
+    calls = REPEATS * len(patches)
+    counts = dict(fl.forward_launches_by_width)
+    by_dtype = dict(fl.forward_launches_by_dtype)
+    others = {"B1b": fl.backward_launches, "B5": fl.block_launches, "B2-B4": dk.launches + pk.launches + rk.launches}
+    expected = {64: layers * calls, 512: calls}
+    emit(phase="optical_flow", model="official_41m_config", dtype="float32 (the parameters' dtype, the default)",
+         micro_batch_size=1, patches_per_pair=len(patches), forwards=calls, pair_ms=spread(pair_ms),
+         patch_ms=spread([t / len(patches) for t in pair_ms]),
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, b1a_launches_by_head_dim=counts,
+         b1a_launches_by_dtype=by_dtype, expected_b1a_launches_by_head_dim=expected, other_launches=others,
+         flow_finite=finite)
+    if counts != expected or by_dtype != {"float32": sum(expected.values())} or any(others.values()) or not finite:
+        raise AssertionError(f"optical flow in float32: B1a launches {counts} ({by_dtype}), expected {expected}; "
+                             f"others {others}; finite {finite}")
+    del model, patches
+    torch.cuda.empty_cache()
+    return by_dtype["float32"]
 
 
 # ------------------------------------------------ phase 6: optical-flow training
@@ -1580,9 +1732,13 @@ def flow_convergence():
     result = run_optical_flow_epe(FLOW_CONVERGENCE_STEPS, device=DEVICE, log_fn=lambda line: None)
     torch.cuda.synchronize()
     counts = flash_counts()
+    by_dtype = {"B1a": dict(fl.forward_launches_by_dtype), "B1b": dict(fl.backward_launches_by_dtype)}
     emit(phase="flow_convergence", steps=FLOW_CONVERGENCE_STEPS, wall_s=time.perf_counter() - t0,
          **{k: v for k, v in result.items() if k != "history"}, val_epe_curve=[h["val_epe"] for h in result["history"]
-                                                                             if "val_epe" in h], launches=counts)
+                                                                             if "val_epe" in h], launches=counts,
+         launches_by_dtype=by_dtype)
+    if by_dtype != {"B1a": {"float32": counts["B1a"]}, "B1b": {"float32": counts["B1b"]}}:
+        raise AssertionError(f"flow convergence: B1 ran other than float32: {by_dtype}")
     if not result["met"]:
         raise AssertionError(f"flow convergence: pipeline EPE {result['full_pipeline_epe_px']} is not under half the "
                              f"zero-flow baseline {result['zero_flow_baseline_epe_px']}")
@@ -1971,6 +2127,8 @@ def sp_counts():
 
 def zero_counts():
     fl.forward_launches = fl.backward_launches = fl.block_launches = 0
+    fl.forward_launches_by_dtype.clear()
+    fl.backward_launches_by_dtype.clear()
     dk.launches = pk.launches = rk.launches = 0
 
 
@@ -2206,7 +2364,7 @@ def wide_ptxas(source, lines):
     was already built, nothing to read)."""
     kernels, current = [], None
     for line in lines:
-        found = re.search(r"(flash_(?:fwd|bwd)_[a-z_]*kernel)(?:ILi(\d+)E)?(?:Lb([01])E)?", line)
+        found = re.search(r"(flash_(?:fwd|bwd)_[a-z0-9_]*kernel)(?:ILi(\d+)E)?(?:Lb([01])E)?", line)
         if "Compiling entry function" in line and found:
             current = dict(kernel=found.group(1))
             if found.group(2):
@@ -2235,11 +2393,13 @@ def main() -> int:
          nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda)
     if cap != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a; this card has compute capability {cap}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain float32 versions stay float32 throughout
+    torch.backends.cudnn.allow_tf32 = False
 
     built = cuda_build.build()
     for source, rec in built.items():
         emit(phase="build", source=f"perceiver_io_torch/csrc/{source}.cu", **rec)
-    for source in ("flash_forward_wide", "flash_backward_wide"):
+    for source in ("flash_forward_wide", "flash_backward_wide", "flash_forward_f32"):
         wide_ptxas(source, built[source]["ptxas"])
 
     decode_results = check_decode_kernel()
@@ -2265,7 +2425,7 @@ def main() -> int:
     launches["B5"] = train_sp()["B5"]
     if not launches["B5"]:
         raise AssertionError("the sequence-parallel training path never launched B5")
-    flow_launches = optical_flow()
+    flow_launches, flow_f32_launches = optical_flow()
     if not (flow_launches.get(64) and flow_launches.get(512)):
         raise AssertionError(f"the optical-flow path did not launch B1a at D = 64 and D = 512: {flow_launches}")
     flow_train_launches = train_flow()
@@ -2283,7 +2443,7 @@ def main() -> int:
     card_vs_cpu_sp()
     card_vs_cpu_flow()
     card_vs_cpu_flow_train()
-    flow_convergence()
+    convergence_launches = flow_convergence()
 
     head = decode_results[("flagship_cross_attention", "bfloat16", 1)]
     kernels = [dict(
@@ -2343,6 +2503,31 @@ def main() -> int:
         replaces="perceiver_io_tpu/ops/flash.py:164", launches=flow_train_launches["B1b"][512],
         max_abs_err=max(e for r in wide_backward_results for e in r["max_abs_err"].values()), ms=head["ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
+    ))
+    # float32: the forward (B1a and B5) on the default-dtype flow path and the
+    # float32 epe task, the backward on the epe task; times at the flow
+    # decoder's patch and (backward) the flagship cross-attention
+    head = next(r for r in flow_flash_results
+                if r["shape"] == "flow_decoder_cross_attention" and r["dtype"] == "float32")
+    f32_forward_errs = [r["max_abs_err"]["o"] for r in flash_results if r["dtype"] == "float32"]
+    f32_forward_errs += [r["max_abs_err"] for r in flow_flash_results if r["dtype"] == "float32"]
+    f32_forward_errs += [e for r in ring_results if r["dtype"] == "float32" for e in r["max_abs_err"].values()]
+    f32_forward_errs += [e for r in wide_backward_results for e in r.get("forward_max_abs_err", {}).values()]
+    kernels.append(dict(
+        name="splash_mha_forward_f32", route="cuda", source="perceiver_io_torch/csrc/flash_forward_f32.cu",
+        replaces="perceiver_io_tpu/ops/flash.py:164", launches=flow_f32_launches + convergence_launches["B1a"],
+        max_abs_err=max(f32_forward_errs), ms=head["ms_checked_batch"], plain_ms=head["plain_ms_checked_batch"],
+        bound_ms=head["bound_ms_checked_batch"], bound_by=head["bound_by_checked_batch"],
+        library_ms=head["library_ms_checked_batch"],
+    ))
+    head = next(r for r in flash_results if r["shape"] == "flagship_cross_attention" and r["dtype"] == "float32")
+    f32_backward = [r for r in flash_results + wide_backward_results if r["dtype"] == "float32"]
+    kernels.append(dict(
+        name="splash_mha_backward_f32", route="cuda", source="perceiver_io_torch/csrc/flash_attention.cu",
+        replaces="perceiver_io_tpu/ops/flash.py:164", launches=convergence_launches["B1b"],
+        max_abs_err=max(r["max_abs_err"][e] for r in f32_backward for e in ("dq", "dk", "dv")),
+        ms=head["backward_ms"], plain_ms=head["plain_backward_ms"], bound_ms=head["backward_bound_ms"],
+        bound_by=head["backward_bound_by"], library_ms=head["library_backward_ms"],
     ))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

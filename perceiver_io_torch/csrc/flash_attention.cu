@@ -1,58 +1,42 @@
-// Flash attention forward (B1a) and backward (B1b) in float32 for Hopper
-// (sm_90a): softmax(q k^T + mask) v over (B, H, N, D) heads without
-// materialising the (Nq, Nk) score matrix, and its gradients dq, dk, dv.
-// Float32 only: the tensor cores have no float32 product. bfloat16 inputs
-// take flash_forward_mma.cu and flash_forward_wide.cu (forward) and
-// flash_backward_mma.cu and flash_backward_wide.cu (backward), on the tensor
-// cores.
+// Flash attention backward (B1b) in float32 for Hopper (sm_90a): the
+// gradients dq, dk, dv of softmax(q k^T + mask) v over (B, H, N, D) heads
+// without materialising the (Nq, Nk) score matrix. Float32 only, on the CUDA
+// cores. The float32 forward (B1a, and B5 with it) is flash_forward_f32.cu,
+// whose float32-class products run on the tensor cores as three TF32
+// products; bfloat16 inputs take flash_forward_mma.cu and
+// flash_forward_wide.cu (forward) and flash_backward_mma.cu and
+// flash_backward_wide.cu (backward), on the tensor cores.
 //
-// Replaces perceiver_io_tpu/ops/flash.py:splash_mha (the Pallas splash kernel
-// built by `_build_kernel` via `make_splash_mha`, forward and backward under
-// its custom VJP). The forward entry with causal = 0 is also B5, the port of
-// perceiver_io_tpu/parallel/ring_attention.py:_splash_fwd_block: ring
-// attention's fully visible blocks, which the TPU runs as the same splash
-// kernel with save_residuals=True (its log-sum-exp) and no causal mask; the
-// ring merges each block's float32 output through its lse. A ring block's key
-// count need not be a multiple of 64 (ragged last tile) and may be all padding
-// (o = 0, lse = -inf). Both directions take D = 64, 128, ..., 512 (every
-// multiple of 64; the wide heads are the Perceiver IO optical-flow decoder's).
-// Same function, same layouts:
+// Replaces the backward of perceiver_io_tpu/ops/flash.py:splash_mha (the
+// Pallas splash kernels built by `_build_kernel` via `make_splash_mha`, under
+// its custom VJP). It takes D = 64, 128, ..., 512 (every multiple of 64; the
+// wide heads are the Perceiver IO optical-flow decoder's). Same function,
+// same layouts as the forward:
 //   q     (B, H, Nq, D)  already scaled and rotated queries, float32
 //   k, v  (B, H, Nk, D)  keys and values, float32
 //   pad   (B, Nk)        uint8, 1 = padding key (the splash segment id 0), or null
-//   o     (B, H, Nq, D)  float32, kept for the backward's delta = rowsum(dO * O)
-//   lse   (B, H, Nq)     float32 log-sum-exp of each query's visible scores
+//   o     (B, H, Nq, D)  the forward's float32 output, for delta = rowsum(dO * O)
+//   lse   (B, H, Nq)     the forward's float32 log-sum-exp of each query's visible scores
 // Causal is right-aligned, as splash's CausalMask((Nq, Nk), offset=Nk-Nq):
-// query i sees key j iff j <= Nk - Nq + i. A query that sees no key gets an
-// output of exact zeros, lse = -inf and zero gradients (never NaN).
+// query i sees key j iff j <= Nk - Nq + i. A query that sees no key gets zero
+// gradients (never NaN).
 //
-// What bounds it on an H100: each visible (query, key) pair costs 4*D flops
-// forward (scores and value sum) and 10*D backward, against O(D) bytes per
-// row read once: in float32 the operations, at the training shapes (D =
-// 64-128, 512 queries over 512-2304 keys, causal). These kernels multiply on
-// the CUDA cores (67 TFLOP/s), so the design keeps the score matrix out of
-// device memory and skips whole tiles that the mask hides:
-//   * forward: one block per (batch*head, query tile), 256 threads; a loop
-//     over key tiles held in shared memory with the online softmax (running
-//     max and sum per row in shared memory, the output tile in registers).
-//     Tiles are 64 x 64 up to D = 128 and shrink to 32 x 32 above, so that
-//     the float32 Q, K, V and score tiles fit in 227 KB of shared memory
-//     (197 KB at D = 512) and the output tile in 2 x D/16 registers a thread.
-//     Key tiles past the causal bound are never loaded; tiles whose keys are
-//     all padding are skipped after one block-wide vote;
-//   * backward, FlashAttention-2 style, three kernels: delta = rowsum(dO * O);
-//     one block per (batch*head, 64-key tile) recomputes P from q, k and lse
-//     over the query tiles that can see it and accumulates dK and dV in
-//     registers; one block per (batch*head, 64-query tile) recomputes P and
-//     accumulates dQ. Above D = 128 the tiles shrink to 16 queries x 32
-//     keys, so that the float32 K, V, Q, dO, P and dS tiles fit in 227 KB
-//     (201 KB at D = 512) and dK, dV in 4 x D/16 registers a thread. No
-//     atomics: every gradient is written once, and the result does not
-//     depend on the order the blocks run in;
-//   * every thread owns a 4 x 4 (or 4 x D/16; 2 x 2 and 2 x D/16 in the
-//     forward's 32-row tiles) register tile of each product, rows ty + 16 i
-//     and columns tx + 16 j; shared tiles are padded to an odd row stride so
-//     a warp's column reads hit distinct banks.
+// What bounds it on an H100: each visible (query, key) pair costs 10*D flops
+// against O(D) bytes per row read once: in float32 the operations, at the
+// training shapes (D = 64-128, 512 queries over 512-2304 keys, causal). These
+// kernels multiply on the CUDA cores (67 TFLOP/s), so the design keeps the
+// score matrix out of device memory and skips whole tiles that the mask
+// hides. FlashAttention-2 style, three kernels: delta = rowsum(dO * O); one
+// block per (batch*head, 64-key tile) recomputes P from q, k and lse over the
+// query tiles that can see it and accumulates dK and dV in registers; one
+// block per (batch*head, 64-query tile) recomputes P and accumulates dQ.
+// Above D = 128 the tiles shrink to 16 queries x 32 keys, so that the float32
+// K, V, Q, dO, P and dS tiles fit in 227 KB (201 KB at D = 512) and dK, dV in
+// 4 x D/16 registers a thread. No atomics: every gradient is written once,
+// and the result does not depend on the order the blocks run in. Every thread
+// owns a 4 x 4 (or 4 x D/16) register tile of each product, rows ty + 16 i
+// and columns tx + 16 j; shared tiles are padded to an odd row stride so a
+// warp's column reads hit distinct banks.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,7 +47,7 @@ namespace {
 constexpr int kBQ = 64;          // query rows per tile
 constexpr int kBK = 64;          // key rows per tile
 constexpr int kThreads = 256;    // 16 x 16 threads: (ty, tx) = (tid / 16, tid % 16)
-constexpr int kBWide = 32;       // the forward's query and key rows, the backward's key rows, per tile above D = 128
+constexpr int kBWide = 32;       // key rows per tile above D = 128
 constexpr int kBWideQ = 16;      // the backward's query rows per tile above D = 128
 
 // Rows [0, valid) of a row-major (rows, D) slice into a (kRows, D + 1) float
@@ -126,116 +110,6 @@ __device__ __forceinline__ int mark_keys(int* key_ok, const uint8_t* __restrict_
 // One past the last key that any query of the tile [q0, q0 + bq) may see.
 __device__ __forceinline__ int key_end(int q0, int Nq, int Nk, int causal, int bq = kBQ) {
   return causal ? min(Nk, max(0, Nk - Nq + q0 + bq)) : Nk;
-}
-
-// ----------------------------------------------------------------- B1a
-// BQ query rows a block against BK-key tiles: 64 x 64 up to D = 128, 32 x 32
-// above (the shared tiles grow with D).
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const uint8_t* __restrict__ pad, float* __restrict__ o, float* __restrict__ lse,
-    int H, int Nq, int Nk, int causal) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + 1;
-  constexpr int LP = BK + 1;    // row stride of the score / probability tile
-  constexpr int R = BQ / 16, C = BK / 16;  // a thread's rows and key columns
-  float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;     // (BQ, LP): scores, then probabilities
-  float* sM = sP + BQ * LP;     // running max per query row
-  float* sL = sM + BQ;          // running sum per query row
-  float* sA = sL + BQ;          // this tile's rescale factor per row
-  int* sOk = reinterpret_cast<int*>(sA + BQ);
-
-  const int bh = blockIdx.x, b = bh / H;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int off = Nk - Nq;
-  const float* kb = k + (size_t)bh * Nk * D;
-  const float* vb = v + (size_t)bh * Nk * D;
-  const uint8_t* pad_row = pad ? pad + (size_t)b * Nk : nullptr;
-
-  load_tile<D, BQ>(sQ, q + ((size_t)bh * Nq + q0) * D, Nq - q0);
-  if (tid < BQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-  float acc[R][D / 16];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-
-  const int k_end = key_end(q0, Nq, Nk, causal, BQ);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    const int kv = min(BK, Nk - k0);
-    load_tile<D, BK>(sK, kb + (size_t)k0 * D, kv);
-    load_tile<D, BK>(sV, vb + (size_t)k0 * D, kv);
-    if (!mark_keys<BK>(sOk, pad_row, k0, kv)) continue;  // padding only: nothing to see
-
-    float s[R][C];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < C; ++j) s[i][j] = 0.f;
-    mm_nt<D>(s, sQ, sK, ty, tx);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = ty + 16 * i, qi = q0 + r;
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const int c = tx + 16 * j;
-        const bool vis = sOk[c] && qi < Nq && (!causal || k0 + c <= qi + off);
-        sP[r * LP + c] = vis ? s[i][j] : -INFINITY;
-      }
-    }
-    __syncthreads();
-    if (tid < BQ) {  // online softmax, one thread per query row
-      float* row = sP + tid * LP;
-      float mx = -INFINITY;
-      for (int c = 0; c < BK; ++c) mx = fmaxf(mx, row[c]);
-      const float m_old = sM[tid];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
-      float sum = 0.f;
-      for (int c = 0; c < BK; ++c) {
-        const float p = expf(row[c] - m_use);  // exp(-inf) = 0 for hidden keys
-        row[c] = p;
-        sum += p;
-      }
-      const float alpha = expf(m_old - m_use);
-      sL[tid] = sL[tid] * alpha + sum;
-      sM[tid] = m_new;
-      sA[tid] = alpha;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float alpha = sA[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
-    }
-    mm_nn<D, BK>(acc, sP, sV, ty, tx);
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty + 16 * i, qi = q0 + r;
-    if (qi >= Nq) continue;
-    const float l = sL[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* orow = o + ((size_t)bh * Nq + qi) * D;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) orow[tx + 16 * j] = acc[i][j] * inv;
-  }
-  if (tid < BQ && q0 + tid < Nq) {
-    const float l = sL[tid];
-    lse[(size_t)bh * Nq + q0 + tid] = l > 0.f ? sM[tid] + logf(l) : -INFINITY;
-  }
 }
 
 // ----------------------------------------------------------------- B1b
@@ -438,28 +312,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
 // --------------------------------------------------------------- launch
 template <int D, int BQ, int BK>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1) + 3 * BQ) + sizeof(int) * BK;
-}
-
-template <int D, int BQ, int BK>
 constexpr size_t bwd_smem() {  // the larger of the two backward kernels' (dkdv)
   return sizeof(float) * (2 * (BQ + BK) * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ) + sizeof(int) * BK;
-}
-
-template <int D, int BQ = (D <= 128 ? kBQ : kBWide), int BK = (D <= 128 ? kBK : kBWide)>
-int forward(const void* q, const void* k, const void* v, const void* pad, void* o, void* lse, int B, int H,
-            int Nq, int Nk, int causal, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<D, BQ, BK>();
-  static_assert(smem <= 232448, "the forward's tiles must fit in 227 KB of shared memory");
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Nq + BQ - 1) / BQ);
-  flash_fwd_kernel<D, BQ, BK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(pad), static_cast<float*>(o), static_cast<float*>(lse), H, Nq, Nk, causal);
-  return (int)cudaGetLastError();
 }
 
 template <int D, int BQ = (D <= 128 ? kBQ : kBWideQ), int BK = (D <= 128 ? kBK : kBWide)>
@@ -502,32 +356,13 @@ bool valid_sizes(int B, int H, int Nq, int Nk, int bq, int bk) {
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. q, k, v, dout and the gradients
-// are float32 (bfloat16 takes flash_forward_mma.cu, flash_forward_wide.cu,
-// flash_backward_mma.cu and flash_backward_wide.cu); o and lse are float32;
-// D: 64, 128, ..., 512; pad: (B, Nk) uint8 or null. The Python
+// Plain C entry point, bound with ctypes. q, k, v, dout and the gradients
+// are float32 (bfloat16 takes flash_backward_mma.cu and
+// flash_backward_wide.cu); o and lse are float32; delta: (B, H, Nq) float32
+// scratch; D: 64, 128, ..., 512; pad: (B, Nk) uint8 or null. The Python
 // wrapper checks every pointer, shape and type and allocates every output
-// and scratch buffer. Each returns cudaGetLastError() after its launches
-// (0 = launched).
-extern "C" int flash_attention_forward(const void* q, const void* k, const void* v, const void* pad, void* o,
-                                       void* lse, int B, int H, int Nq, int Nk, int D, int causal, void* stream) {
-  if (!valid_sizes(B, H, Nq, Nk, D <= 128 ? kBQ : kBWide, D <= 128 ? kBK : kBWide)) return (int)cudaErrorInvalidValue;
-  (void)cudaGetLastError();  // clear a stale error so the one returned is this launch's
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return forward<64>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    case 128: return forward<128>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    case 192: return forward<192>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    case 256: return forward<256>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    case 320: return forward<320>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    case 384: return forward<384>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    case 448: return forward<448>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    case 512: return forward<512>(q, k, v, pad, o, lse, B, H, Nq, Nk, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// delta: (B, H, Nq) float32 scratch.
+// and scratch buffer. Returns cudaGetLastError() after its launches (0 =
+// launched).
 extern "C" int flash_attention_backward(const void* q, const void* k, const void* v, const void* pad,
                                         const void* o, const void* lse, const void* dout, void* delta, void* dq,
                                         void* dk, void* dv, int B, int H, int Nq, int Nk, int D, int causal,

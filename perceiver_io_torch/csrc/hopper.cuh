@@ -1,18 +1,19 @@
 // Hopper (sm_90a) building blocks written as inline PTX, shared by the
-// kernels that run on wgmma fed by TMA (flash_forward_wide.cu and
-// flash_backward_wide.cu): mbarriers, the TMA tile load with and without
-// cluster multicast and the TMA tile store, the wgmma shared-memory
-// descriptor with its fence, commit and wait, the proxy fence for operands
-// stored by threads, the wgmma products themselves, setmaxnreg, named
+// kernels that run on wgmma fed by TMA (flash_forward_wide.cu,
+// flash_backward_wide.cu and flash_forward_f32.cu): mbarriers, the TMA tile
+// load with and without cluster multicast and the TMA tile store, the wgmma
+// shared-memory descriptor with its fence, commit and wait, the proxy fence
+// for operands stored by threads, the wgmma products themselves (bf16, and
+// tf32 with the split of a float32 into TF32 terms), setmaxnreg, named
 // barriers and the host-side encoding of a tensor map. Plain PTX, no
 // CuTe/CUTLASS templates, so that a source that includes it compiles in
 // seconds.
 //
 // Layout convention: every tile in shared memory is stored as boxes of 64
-// bf16 channels (128 bytes a row) written by TMA with the 128-byte swizzle
-// (16-byte chunk c of row r at chunk c ^ (r % 8)), each box starting at a
-// multiple of 1024 bytes, so that one 8-row group of a box is one swizzle
-// atom of wgmma's SWIZZLE_128B layout.
+// bf16 channels (or 32 float32 ones: 128 bytes a row) written by TMA with the
+// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), each box
+// starting at a multiple of 1024 bytes, so that one 8-row group of a box is
+// one swizzle atom of wgmma's SWIZZLE_128B layout.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: the driver function is found at run time)
@@ -62,6 +63,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+// The same, by a whole warp, as a loop on a warp-uniform vote: ptxas then sees
+// no divergent branch between the wgmma issues around it (a try_wait loop on
+// each thread's own predicate, between a wgmma and its wait, made ptxas
+// serialise every wgmma of flash_forward_f32.cu).
+__device__ __forceinline__ void mbar_wait_warp(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!__all_sync(0xffffffffu, done));
 }
 // The same, acquiring at cluster scope what the arrivals of other blocks released.
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
@@ -308,6 +325,52 @@ struct Wgmma<256> {
   }
 };
 
+// TF32 products for float32-class arithmetic (flash_forward_f32.cu): x as a
+// TF32 value (cvt.rna: round to nearest, ties away from zero; the low 13 bits
+// of the float32 word zero), and x split into hi + lo with lo the TF32
+// rounding of x - hi, so that a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// wgmma.mma_async m64nNk8 with tf32 inputs and float32 sums (d += A B): A
+// (64 x 8) from registers, warp w of the warpgroup holding rows 16 w .. 16 w
+// + 15 as mma.sync's m16n8k8 tf32 A fragment (a0 (g, t), a1 (g + 8, t), a2
+// (g, t + 4), a3 (g + 8, t + 4) for lane 4 g + t); B (8 x N) K-major from
+// shared memory (tf32 takes no transpose: both operands K-major); the
+// accumulator laid out as the bf16 products'.
+template <int N>
+struct WgmmaTf32;
+// With accumulate = 0 the product overwrites d (wgmma's scale-d off).
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate = 1) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+                 "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : F16(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate = 1) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+                 "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : F32(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
 
 #undef F4
 #undef F16
@@ -362,6 +425,21 @@ inline bool bf16_rows_map(CUtensorMap* map, const void* base, uint64_t outer, ui
   const cuuint32_t box[3] = {64, box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over a contiguous float32 tensor (outer, rows, cols), boxes of
+// (1, box_rows, 32): 32 floats are one 128-byte swizzled row.
+inline bool f32_rows_map(CUtensorMap* map, const void* base, uint64_t outer, uint64_t rows, uint64_t cols,
+                         uint32_t box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cols, rows, outer};
+  const cuuint64_t strides[2] = {cols * sizeof(float), rows * cols * sizeof(float)};
+  const cuuint32_t box[3] = {32, box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -9,8 +9,9 @@ heads of 64 and 128 channels (tensor-core ``mma.sync`` tiles),
 ``csrc/flash_forward_wide.cu`` for bfloat16 heads of 192 to 512 channels
 (``wgmma`` fed by TMA, warp-specialised, K and V multicast over a cluster
 of two blocks; a bf16 output when no float32 reader needs it), and
-``csrc/flash_attention.cu`` for float32 at every width (the tensor cores
-have no float32 product); B1b, the backward, is
+``csrc/flash_forward_f32.cu`` for float32 at every width (``wgmma`` fed by
+TMA: float32-class products as three TF32 products, each operand split
+into a TF32 high part and a TF32 low part); B1b, the backward, is
 ``csrc/flash_backward_mma.cu`` for bfloat16 heads of 64 and 128 channels
 (two deterministic passes on ``mma.sync`` tiles, dK/dV and dQ, as the TPU's
 splash runs them), ``csrc/flash_backward_wide.cu`` for bfloat16 heads of 192
@@ -18,8 +19,8 @@ to 512 channels (two passes on ``wgmma`` fed by TMA, warp-specialised,
 the streamed tiles multicast over a cluster of two blocks: dK/dV, its query
 range split over blocks whose float32 partial sums a reduce adds in split
 order, writes dS to a scratch; dQ multiplies that dS by K) and
-``csrc/flash_attention.cu`` for float32 at every width (each file's header
-says what bounds its kernels). On a CPU tensor the same Function computes
+``csrc/flash_attention.cu`` for float32 at every width (on the CUDA cores;
+each file's header says what bounds its kernels). On a CPU tensor the same Function computes
 the kernels' arithmetic in plain PyTorch (``_forward_plain``,
 ``_backward_plain``). ``flash_attention_reference`` is the plain version
 written with autograd-native ops: the CUDA kernels and the CPU route are held
@@ -80,15 +81,19 @@ _WIDE_WAVES = 8
 
 # Launches since import (or since the caller last reset them to 0): one per
 # forward kernel call (B1a; also counted by head width in
-# ``forward_launches_by_width``), one per backward call (B1b: its delta,
+# ``forward_launches_by_width`` and by input type, "float32" or "bfloat16",
+# in ``forward_launches_by_dtype``), one per backward call (B1b: its delta,
 # dK/dV and dQ kernels, and at wide heads the dK/dV reduce; also counted by
-# head width in ``backward_launches_by_width``) and one per ring block (B5).
-# Only ``_launch_forward``, ``_launch_backward`` and ``ring_block_forward``
-# add to them.
+# head width and input type in ``backward_launches_by_width`` and
+# ``backward_launches_by_dtype``) and one per ring block (B5). Only
+# ``_launch_forward``, ``_launch_backward`` and ``ring_block_forward`` add
+# to them.
 forward_launches = 0
 forward_launches_by_width = {}
+forward_launches_by_dtype = {}
 backward_launches = 0
 backward_launches_by_width = {}
+backward_launches_by_dtype = {}
 block_launches = 0
 
 
@@ -206,7 +211,7 @@ class _FlashAttention(torch.autograd.Function):
     CUDA tensor bfloat16 runs ``flash_forward_mma.cu`` and
     ``flash_backward_mma.cu`` (heads of 64 and 128 channels) or
     ``flash_forward_wide.cu`` and ``flash_backward_wide.cu`` (192 to 512),
-    float32 ``flash_attention.cu`` both ways. Saves (q, k, v, o, lse) and
+    float32 ``flash_forward_f32.cu`` and ``flash_attention.cu``. Saves (q, k, v, o, lse) and
     the pad mask, with o the float32 (or wider) output before its cast to
     q's dtype; a wide bfloat16 forward without gradients writes o in
     bfloat16 already, and returns it uncast."""
@@ -235,30 +240,54 @@ class _FlashAttention(torch.autograd.Function):
 
 # ------------------------------------------------------------------ CUDA
 _DTYPES = (torch.float32, torch.bfloat16)
-_fns = None
+_bwd_fn = None
+_f32_fn = None
 _mma_fn = None
 _wide_fn = None
 _mma_bwd_fn = None
 _wide_bwd_fn = None
 
 
-def _entries():
-    """The C entry points (forward, backward), built and loaded at first use
-    (never at import)."""
-    global _fns
-    if _fns is None:
+def _backward_entry():
+    """The float32 backward's C entry point (``csrc/flash_attention.cu``),
+    built and loaded at first use (never at import)."""
+    global _bwd_fn
+    if _bwd_fn is None:
         from perceiver_io_torch.ops.cuda_build import library
 
-        lib = library("flash_attention")
+        fn = library("flash_attention").flash_attention_backward
         p, i = ctypes.c_void_p, ctypes.c_int
-        fwd, bwd = lib.flash_attention_forward, lib.flash_attention_backward
-        # q k v pad o lse B H Nq Nk D causal stream
-        fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         # q k v pad o lse dout delta dq dk dv B H Nq Nk D causal stream
-        bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-        fwd.restype = bwd.restype = i
-        _fns = (fwd, bwd)
-    return _fns
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def _f32_entry():
+    """The float32 forward's C entry point (``csrc/flash_forward_f32.cu``),
+    built and loaded at first use (never at import)."""
+    global _f32_fn
+    if _f32_fn is None:
+        from perceiver_io_torch.ops.cuda_build import library
+
+        fn = library("flash_forward_f32").flash_forward_f32
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # q k v pad scratch o lse B H Nq Nk D causal stream
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
+        _f32_fn = fn
+    return _f32_fn
+
+
+def f32_scratch_floats(batch_heads: int, n_k: int, head_dim: int) -> int:
+    """Float32 words of ``flash_forward_f32.cu``'s scratch: K as TF32 high and
+    low terms (2 x B*H x Nk x D) and V transposed, as the same two terms, with
+    its keys padded with zeros to a multiple of 8 (2 x B*H x D x Nk8): a row
+    of V^T is then a multiple of 32 bytes, as TMA needs 16, and every 8-group
+    of keys that the kernel reorders is whole."""
+    n_k8 = -(-n_k // 8) * 8
+    return 2 * batch_heads * head_dim * (n_k + n_k8)
 
 
 def _mma_entry():
@@ -352,7 +381,7 @@ def _wide_query_rows(n_q: int) -> int:
 def _check_aligned(tensors: dict, what: str) -> None:
     for name, t in tensors.items():
         if t.data_ptr() % 16:  # cp.async copies rows in 16-byte pieces; a TMA tensor map needs a 16-byte base
-            raise ValueError(f"the bf16 flash {what} needs 16-byte aligned tensors; {name} is not")
+            raise ValueError(f"the flash {what} needs 16-byte aligned tensors; {name} is not")
 
 
 def _check_cuda(tensors: dict, q: torch.Tensor, head_dims=_HEAD_DIMS) -> None:
@@ -380,30 +409,33 @@ def _pad_bytes(pad_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def _forward_entry(q, k, v, pad_mask, causal, split_p) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on the current stream, or raise: (o, lse).
-    bfloat16 inputs take a tensor-core kernel (``flash_forward_mma`` for
-    heads of 64 and 128 channels, ``flash_forward_wide`` for 192 to 512;
-    ``split_p``: P as two bf16 terms), float32 ones
-    ``flash_attention_forward``. lse is float32; o is float32, except from
+    bfloat16 inputs take ``flash_forward_mma`` (heads of 64 and 128
+    channels) or ``flash_forward_wide`` (192 to 512; ``split_p``: P as two
+    bf16 terms), float32 ones ``flash_forward_f32`` (its K and V^T terms in
+    a scratch of ``f32_scratch_floats`` words); every one reads q, k and v
+    16-byte aligned. lse is float32; o is float32, except from
     ``flash_forward_wide`` without ``split_p`` (a forward whose output is
     only cast), which writes it in bfloat16. Counts nothing: its callers
     do."""
     pad = _pad_bytes(pad_mask)
     _check_cuda({"q": q, "k": k, "v": v, "pad_mask": pad}, q)
+    _check_aligned({"q": q, "k": k, "v": v}, "forward")
     b, h, n_q, d = q.shape
+    n_k = k.shape[2]
     wide = q.dtype == torch.bfloat16 and d not in _NARROW_HEAD_DIMS
     o = torch.empty(q.shape, dtype=torch.bfloat16 if wide and not split_p else torch.float32, device=q.device)
     lse = torch.empty(b, h, n_q, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pad_ptr = None if pad is None else pad.data_ptr()
     if q.dtype == torch.bfloat16:
-        _check_aligned({"q": q, "k": k, "v": v}, "forward")
         name, entry = ("flash_forward_wide", _wide_entry) if wide else ("flash_forward_mma", _mma_entry)
         err = entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, o.data_ptr(), lse.data_ptr(), b, h, n_q,
-                      k.shape[2], d, int(causal), int(split_p), stream)
+                      n_k, d, int(causal), int(split_p), stream)
     else:
-        name = "flash_attention_forward"
-        err = _entries()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, o.data_ptr(), lse.data_ptr(), b, h,
-                            n_q, k.shape[2], d, int(causal), stream)
+        name = "flash_forward_f32"
+        scratch = torch.empty(f32_scratch_floats(b * h, n_k, d), dtype=torch.float32, device=q.device)
+        err = _f32_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_ptr, scratch.data_ptr(), o.data_ptr(),
+                           lse.data_ptr(), b, h, n_q, n_k, d, int(causal), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return o, lse
@@ -418,8 +450,9 @@ def _launch_forward(q, k, v, pad_mask, causal, split_p=True) -> Tuple[torch.Tens
     global forward_launches
     out = _forward_entry(q, k, v, pad_mask, causal, split_p)
     forward_launches += 1
-    d = q.shape[-1]
+    d, dtype = q.shape[-1], str(q.dtype).removeprefix("torch.")
     forward_launches_by_width[d] = forward_launches_by_width.get(d, 0) + 1
+    forward_launches_by_dtype[dtype] = forward_launches_by_dtype.get(dtype, 0) + 1
     return out
 
 
@@ -476,9 +509,11 @@ def _launch_backward(q, k, v, pad_mask, causal, o, lse, do) -> Tuple[torch.Tenso
         err = _wide_backward_entry()(*args[:8], ws.data_ptr(), ds.data_ptr(), *args[8:], splits, stream)
     else:
         name = "flash_attention_backward"
-        err = _entries()[1](*args, stream)
+        err = _backward_entry()(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     backward_launches += 1
+    dtype = str(q.dtype).removeprefix("torch.")
     backward_launches_by_width[d] = backward_launches_by_width.get(d, 0) + 1
+    backward_launches_by_dtype[dtype] = backward_launches_by_dtype.get(dtype, 0) + 1
     return dq, dk, dv

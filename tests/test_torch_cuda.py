@@ -389,7 +389,7 @@ def _flash_limit(want, dtype):
 def test_flash_kernels_match_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pads, causal):
     """B1a and B1b (left-padded keys) against the plain version and its
     autograd gradients (bf16: flash_forward_mma.cu and flash_backward_mma.cu;
-    float32: flash_attention.cu); pad keys get exact-zero dK and dV, queries
+    float32: flash_forward_f32.cu and flash_attention.cu); pad keys get exact-zero dK and dV, queries
     that see no key exact-zero outputs."""
     g = torch.Generator(card).manual_seed(nq)
     q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).to(dtype)
@@ -423,10 +423,11 @@ def test_flash_forward_route(card, monkeypatch, dtype, entry):
     """bfloat16 reaches the tensor-core forward (flash_forward_mma.cu), with P
     in two bf16 terms for B5 and for a B1a whose output will be
     differentiated (B1b reads it), one for a B1a without gradients; float32
-    reaches flash_attention.cu's forward. Each call adds one to its own
-    counter."""
+    reaches flash_forward_f32.cu's forward (three TF32 products on the
+    tensor cores) for B1a with and without gradients and for B5. Each call
+    adds one to its own counter."""
     calls = []
-    mma, entries = fl._mma_entry(), fl._entries()
+    mma, f32 = fl._mma_entry(), fl._f32_entry()
 
     def spy_mma(*args):
         calls.append(("mma", args[12]))  # split_p
@@ -434,10 +435,10 @@ def test_flash_forward_route(card, monkeypatch, dtype, entry):
 
     def spy_fp32(*args):
         calls.append(("fp32", None))
-        return entries[0](*args)
+        return f32(*args)
 
     monkeypatch.setattr(fl, "_mma_entry", lambda: spy_mma)
-    monkeypatch.setattr(fl, "_entries", lambda: (spy_fp32, entries[1]))
+    monkeypatch.setattr(fl, "_f32_entry", lambda: spy_fp32)
     q = torch.randn(1, 2, 128, 64, device=card).to(dtype)
     leaf = q.clone().requires_grad_()
     before = (fl.forward_launches, fl.block_launches)
@@ -455,7 +456,7 @@ def test_flash_backward_route(card, monkeypatch, dtype, entry):
     float32 flash_attention.cu's backward; each backward adds one to
     backward_launches."""
     calls = []
-    mma, entries = fl._mma_backward_entry(), fl._entries()
+    mma, f32 = fl._mma_backward_entry(), fl._backward_entry()
 
     def spy_mma(*args):
         calls.append("mma")
@@ -463,10 +464,10 @@ def test_flash_backward_route(card, monkeypatch, dtype, entry):
 
     def spy_fp32(*args):
         calls.append("fp32")
-        return entries[1](*args)
+        return f32(*args)
 
     monkeypatch.setattr(fl, "_mma_backward_entry", lambda: spy_mma)
-    monkeypatch.setattr(fl, "_entries", lambda: (entries[0], spy_fp32))
+    monkeypatch.setattr(fl, "_backward_entry", lambda: spy_fp32)
     leaves = [torch.randn(1, 2, 128, 64, device=card).to(dtype).requires_grad_() for _ in range(3)]
     before = fl.backward_launches
     for _ in range(2):
@@ -527,8 +528,8 @@ WIDE_DIMS = [192, 256, 320, 384, 448, 512]
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_wide_flash_forward_matches_plain(card, monkeypatch, dtype, d, causal):
     """B1a at the wide heads (bf16: flash_forward_wide.cu, P in one bf16
-    term without gradients and in two with; float32: flash_attention.cu's
-    32-row tiles) against the plain version, at ragged sizes with left-padded
+    term without gradients and in two with; float32: flash_forward_f32.cu,
+    its consumers splitting D) against the plain version, at ragged sizes with left-padded
     keys: the output within B1's limits, and with two terms (and in float32)
     the float32 output and lse within 1e-4."""
     g = torch.Generator(card).manual_seed(d)
@@ -621,6 +622,57 @@ def test_wide_flash_forward_at_512_over_many_clusters(card):
     want = want_o.bfloat16()
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), **_flash_limit(want, torch.bfloat16))
+
+
+F32_DIMS = [64, 128, 192, 256, 320, 384, 448, 512]
+
+
+@pytest.mark.parametrize("d", F32_DIMS)
+def test_f32_flash_forward_every_width(card, monkeypatch, d):
+    """B1a in float32 (flash_forward_f32.cu) at every width it takes, padded
+    and causal at a ragged shape (130 queries: a partial block, an odd
+    query-tile count and so a spare block at D > 128; 200 keys, not a
+    multiple of 8; row 1's first 60 keys padding, so its first queries see no
+    key): the output and lse within 1e-4 of the plain version, exact zeros
+    and -inf where a query sees no key, each call one launch counted at its
+    width, and two runs the same bits; a ring block through B5's entry at
+    the same width, ragged, with a row whose keys are all padding."""
+    g = torch.Generator(card).manual_seed(d + 1)
+    b, h, nq, nk = 2, 2, 130, 200
+    q = torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5
+    k, v = (torch.randn(b, h, nk, d, generator=g, device=card) for _ in range(2))
+    pad = torch.arange(nk, device=card)[None, :] < torch.tensor([0, 130], device=card)[:, None]
+    want_o, want_lse = fl._forward_plain(q, k, v, pad, True)
+    ring_pad = torch.arange(nk, device=card)[None, :] < torch.tensor([17, nk], device=card)[:, None]
+    want_ring = fl._forward_plain(q, k, v, ring_pad, False)
+    monkeypatch.setattr(fl, "_forward_plain", None)  # the CUDA path must not need it
+    before = (fl.forward_launches, fl.forward_launches_by_width.get(d, 0), fl.block_launches)
+    first, second = (fl._launch_forward(q, k, v, pad, True) for _ in range(2))
+    ring = fl.ring_block_forward(q, k, v, ring_pad)
+    torch.cuda.synchronize()
+    assert (fl.forward_launches, fl.forward_launches_by_width[d], fl.block_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 1)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    for (o, lse), (w_o, w_lse) in ((first, (want_o, want_lse)), (ring, want_ring)):
+        finite = torch.isfinite(w_lse)
+        assert not finite.all() and torch.equal(torch.isfinite(lse), finite)
+        assert (o[~finite] == 0).all() and torch.isneginf(lse[~finite]).all()
+        torch.testing.assert_close(o, w_o, atol=1e-4, rtol=0)
+        torch.testing.assert_close(lse[finite], w_lse[finite], atol=1e-4, rtol=0)
+
+
+def test_f32_flash_forward_rejects_what_it_does_not_take(card):
+    """The float32 forward reads q, k and v through 16-byte aligned tensor
+    maps and loads: a k that is not 16-byte aligned raises before any
+    launch; a float16 input raises."""
+    q = torch.randn(1, 2, 128, 64, device=card)
+    shifted = torch.zeros(2 * 128 * 64 + 1, device=card)[1:].view(1, 2, 128, 64)
+    before = fl.forward_launches
+    with pytest.raises(ValueError, match="16-byte aligned tensors; k is not"):
+        fl._launch_forward(q, shifted, q, None, True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fl._launch_forward(q.half(), q.half(), q.half(), None, True)
+    assert fl.forward_launches == before
 
 
 def test_wide_flash_backward_raises(card):

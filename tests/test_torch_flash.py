@@ -5,7 +5,10 @@ B1a/B1b and the autograd Function's CPU route) against the JAX package's
 gradients at the wide heads (D = 192, 256, 512) that the optical-flow
 decoder needs; and the bf16 CUDA kernels' roundings, emulated in plain
 PyTorch (the forward's P; the backward's P and dS, with its tiling and, at
-the wide heads, its query splits), against the plain version's limits.
+the wide heads, its query splits), against the plain version's limits; and
+the float32 forward's three TF32 products (its tiling read from
+csrc/flash_forward_f32.cu, and a model of the tensor cores' truncating
+float32 sums) against the float64 plain version.
 
 Tolerances: the forward within atol 2e-5, as the JAX package's own tests
 hold splash against its XLA formulation; dq, dk and dv against ``jax.grad``
@@ -34,6 +37,7 @@ ATOL = 2e-5
 KERNEL_SOURCE = Path(fl.__file__).resolve().parent.parent / "csrc" / "flash_backward_mma.cu"
 WIDE_KERNEL_SOURCE = KERNEL_SOURCE.with_name("flash_backward_wide.cu")
 WIDE_FORWARD_SOURCE = KERNEL_SOURCE.with_name("flash_forward_wide.cu")
+F32_FORWARD_SOURCE = KERNEL_SOURCE.with_name("flash_forward_f32.cu")
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block may have
 
 
@@ -811,6 +815,277 @@ def test_wide_backward_design_fits_the_card(d):
     assert sum(design["boxes"]) == d // 64 and min(design["boxes"]) >= 1 and 64 * max(design["boxes"]) <= 256
     assert tiles["rows"] % 16 == 0 and tiles["rows"] <= 256 and tiles["dq_cols"] == tiles["rows"]
     assert tiles["cols"] // 2 % 8 == 0 and tiles["dq_cols"] // 2 % 8 == 0
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 0x1000 added to
+    the float32 word's magnitude bits, the low 13 bits cleared (to nearest,
+    ties away from zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    sign = bits & torch.tensor(-2**31, dtype=torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (sign | mag).view(torch.float32)
+
+
+def _f32_forward_design(d):
+    """csrc/flash_forward_f32.cu's design at head width d, read from the
+    source: whether its two consumers split D (else each owns 64 of the
+    block's rows), the block's query rows, the key tile, the ring's slabs,
+    a slab's bytes and the shared-memory bytes (``smem_bytes`` evaluated
+    at these), the order of its 32-channel slabs in a tile, and whether
+    both products (S's slab and P V's) start each slab's first slice in a
+    fresh accumulator of their own (``mma3(part[..], .., kk == 0)``)."""
+    src = F32_FORWARD_SOURCE.read_text()
+
+    def body(name):
+        return re.search(rf"constexpr \w+ {name}\((?:int i)?\) \{{(?:\s*//[^\n]*)?\s*return ([^;]+);", src).group(1)
+
+    split = eval(body("split_d").replace("D", str(d)))
+    env = {"split_d<D>()": split, "kBox": 32, "sizeof(float)": 4, "sizeof(uint64_t)": 8, "D": d}
+
+    def value(name):
+        expr = body(name)
+        for word in sorted(env, key=len, reverse=True):
+            expr = expr.replace(word, str(env[word]))
+        expr = re.sub(r"\(?(\w+) \? ([^:()]+) : ([^()]+?)\)?$", r"(\2 if \1 else \3)", " ".join(expr.split()))
+        return eval(expr.replace("/", "//"))
+
+    env["block_rows<D>()"] = rows = value("block_rows")
+    env["key_tile<D>()"] = tile = value("key_tile")
+    chain = body("stages")  # D <= a ? x : D <= b ? y : ... : z
+    stages = next((int(x) for bound, x in re.findall(r"D <= (\d+)\s*\? (\d+)\s*:", chain) if d <= int(bound)),
+                  int(chain.rsplit(":", 1)[-1]))
+    env["stages<D>()"] = stages
+    env["slab_bytes<D>()"] = slab = value("slab_bytes")
+    smem = " ".join(body("smem_bytes").split())
+    for word in sorted(env, key=len, reverse=True):
+        smem = smem.replace(word, str(env[word]))
+    smem = re.sub(r"\((True|False) \? ([^:]+) : 0\)", lambda m: f"({m.group(2)} if {m.group(1)} else 0)", smem)
+    box = re.search(r"slab_box\(int i\) \{\s*return split_d<D>\(\) \? ([^:]+) : i;", src).group(1)
+    order = [eval(box.replace("D / 64", str(d // 64)).replace("/", "//"), {}, {"i": i}) if split else i
+             for i in range(d // 32)]
+    def choice(name):  # ``return D >= a ? x : y;`` or a number, at d
+        expr = body(name)
+        cond = re.fullmatch(r"\s*D >= (\d+) \? (\d+) : (\d+)\s*", expr)
+        return (int(cond.group(2)) if d >= int(cond.group(1)) else int(cond.group(3))) if cond else int(expr)
+
+    return dict(split=split, rows=rows, tile=tile, stages=stages, slab=slab, smem=eval(smem), order=order,
+                q_sets=choice("q_sets"), fresh=len(re.findall(r"mma3<\w+>\(part\[[^;]*, kk == 0\);", src)) == 2,
+                pv_parts=choice("pv_parts"), consumer_regs=_constant(src, "kConsumerRegs"),
+                producer_regs=_constant(src, "kProducerRegs"))
+
+
+def _rz(x64):
+    """float64 to float32 rounded toward zero."""
+    x32 = x64.float()
+    over = x32.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(x32, torch.zeros_like(x32)), x32)
+
+
+def _tensor_core_products(acc, a, b, terms=3):
+    """acc (.., M, N) float32 + a (.., M, K) b (.., N, K)^T as the kernel's
+    wgmma products of k = 8 slices, lo hi, hi lo, hi hi (with terms=1 hi hi
+    alone), each into acc, in a model of the tensor cores' float32 sums: a
+    wgmma's 8 products and acc added exactly, then truncated to float32
+    (toward zero, as they are)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    pairs = [(a_hi, b_hi)] if terms == 1 else [(_tf32(a - a_hi), b_hi), (a_hi, _tf32(b - b_hi)), (a_hi, b_hi)]
+    for k0 in range(0, a.shape[-1], 8):
+        sl = slice(k0, k0 + 8)
+        for x, y in pairs:
+            products = x[..., :, None, sl].double() * y[..., None, :, sl].double()
+            acc = _rz(acc.double() + products.sum(-1))
+    return acc
+
+
+def _f32_kernel_arithmetic(q, k, v, pad, causal, terms=3, fresh=None):
+    """csrc/flash_forward_f32.cu's arithmetic in PyTorch, its design read
+    from the source: key tiles of its width, those whose keys are all
+    padding skipped, S and P V from TF32 terms in _tensor_core_products'
+    model of the tensor cores' truncating sums, the mask, the online softmax
+    in float32. With fresh (by default read from the source), each
+    32-channel slab of S starts from zero and is added, rounded, to its
+    consumer's S (with split D the two consumers' partials over the halves
+    of D then added), and each tile's P V starts from zero and is added to
+    O's rescaled rows in one rounding (a fused multiply-add); else (the
+    one-chain control) S runs as one chain of truncating sums over the
+    consumer's channels and O accumulates in the tensor cores over every
+    key. Returns (o, lse) in float32."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    design = _f32_forward_design(d)
+    tile, fresh = design["tile"], design["fresh"] if fresh is None else fresh
+    halves = [(0, d // 2), (d // 2, d)] if design["split"] else [(0, d)]
+    visible = fl._visibility(nq, nk, pad, causal, q.device)
+    m = torch.full((b, h, nq), float("-inf"))
+    l, acc = torch.zeros(b, h, nq), torch.zeros(b, h, nq, d)
+    for k0 in range(0, nk, tile):
+        keys = slice(k0, k0 + tile)
+        if pad is not None and bool(pad[:, keys].all()):
+            continue  # every key of the tile is padding: the kernel never loads it
+        kt, vt = k[:, :, keys], v[:, :, keys]
+        s = torch.zeros(b, h, nq, kt.shape[2])
+        for lo, hi in halves:
+            part = torch.zeros_like(s)
+            for c0 in range(lo, hi, 32):
+                slab = slice(c0, c0 + 32)
+                if fresh:
+                    part = part + _tensor_core_products(torch.zeros_like(s), q[..., slab], kt[..., slab], terms)
+                else:
+                    part = _tensor_core_products(part, q[..., slab], kt[..., slab], terms)
+            s = s + part
+        s = s.masked_fill(~visible[..., keys], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+        alpha, p = torch.exp(m - m_use), torch.exp(s - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        if fresh:
+            pv = _tensor_core_products(torch.zeros_like(acc), p, vt.transpose(-1, -2), terms)
+            acc = (acc.double() * alpha.double()[..., None] + pv.double()).float()
+        else:
+            acc = _tensor_core_products(acc * alpha[..., None], p, vt.transpose(-1, -2), terms)
+        m = m_new
+    o = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    return o, torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("-inf")))
+
+
+# The float32-class limit: the kernel's error against the float64 plain
+# version at most this many times the plain float32 version's. On an H100
+# the kernel read 0.44-0.93 x, its first build (one chain of truncating sums
+# over D and every key) 6.13-8.69 x, one TF32 term 250-2,000 x.
+F32_CLASS_FACTOR = 4
+F32_CASES = {  # name: (batch, heads, queries, keys, left pads of the keys per row, causal)
+    "padded_causal_ragged": (2, 1, 100, 150, [0, 70], True),  # row 1: the first 20 queries see no key
+    "ring_block_all_pad_row": (3, 1, 70, 150, [0, 150, 90], False),
+}
+
+
+def _f32_errors(d, case, terms):
+    """Max |o - o64| of the kernel's emulated arithmetic and of the plain
+    float32 version, against the plain version in float64, and the
+    emulation's lse error: inputs at the scale the models give (queries
+    scaled by D^-1/2, unit keys and values)."""
+    b, h, nq, nk, pads, causal = F32_CASES[case]
+    rs = np.random.RandomState(d + nk)
+    q = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32) * d**-0.5)
+    k, v = (torch.from_numpy(rs.randn(b, h, nk, d).astype(np.float32)) for _ in range(2))
+    pad = torch.arange(nk)[None, :] < torch.tensor(pads)[:, None]
+    want_o, want_lse = fl._forward_plain(q.double(), k.double(), v.double(), pad, causal)
+    plain_o = fl._forward_plain(q, k, v, pad, causal)[0]
+    emu_o, emu_lse = _f32_kernel_arithmetic(q, k, v, pad, causal, terms)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(emu_lse), finite) and not finite.all()
+    assert (emu_o[~finite] == 0).all()
+    return ((emu_o.double() - want_o).abs().max().item(), (plain_o.double() - want_o).abs().max().item(),
+            (emu_lse[finite].double() - want_lse[finite]).abs().max().item())
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """The emulation's TF32 rounding: 10 explicit mantissa bits, to nearest
+    with ties away from zero, in both signs; a split's hi + lo within 2^-22
+    of x."""
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-12, 3.0e-30])
+    assert _tf32(x).tolist() == [1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-9, -(1.0 + 2.0**-10), 1.0, _tf32(x[5:]).item()]
+    y = torch.from_numpy(np.random.RandomState(0).randn(4096).astype(np.float32))
+    hi = _tf32(y)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all() and ((y - hi).abs() <= 2.0**-11 * y.abs()).all()
+    assert ((hi + _tf32(y - hi) - y).abs() <= 2.0**-22 * y.abs()).all()
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 512])
+def test_f32_forward_emulation_is_float32_class(d, case):
+    """csrc/flash_forward_f32.cu's arithmetic (three TF32 products in the
+    model of truncating tensor-core sums, its tiles, slabs and S split read
+    from the source) against the float64 plain version, at
+    a ragged, left-padded, causal shape and at a ring block (no causal mask)
+    with a row whose keys are all padding (exact zeros, lse = -inf): the
+    output within 1e-4 and within F32_CLASS_FACTOR x the plain float32
+    version's own error, the lse within 1e-4."""
+    err, plain_err, lse_err = _f32_errors(d, case, terms=3)
+    assert err <= 1e-4 and lse_err <= 1e-4
+    assert err <= F32_CLASS_FACTOR * plain_err, (err, plain_err)
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("d", [64, 512])
+def test_one_tf32_term_is_not_float32_class(d):
+    """The negative control: the same arithmetic with one TF32 product (hi
+    hi) in place of three is more than F32_CLASS_FACTOR x the plain float32
+    version's error from float64."""
+    err, plain_err, _ = _f32_errors(d, "padded_causal_ragged", terms=1)
+    assert err > F32_CLASS_FACTOR * plain_err, (err, plain_err)
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("d", [128, 512])
+def test_f32_forward_truncating_sums_need_fresh_accumulators(d):
+    """Why the kernel gives each slab of S and each tile's P V a fresh
+    accumulator: in a model of the tensor cores' truncating float32 sums,
+    with them the output stays within 3 x the plain float32 version's error
+    from float64 (1,024 keys); one chain of sums over D and over every key
+    is more than 6 x, past F32_CLASS_FACTOR."""
+    rs = np.random.RandomState(d)
+    nq, nk = 16, 1024
+    q = torch.from_numpy(rs.randn(1, 1, nq, d).astype(np.float32) * d**-0.5)
+    k, v = (torch.from_numpy(rs.randn(1, 1, nk, d).astype(np.float32)) for _ in range(2))
+    want = fl._forward_plain(q.double(), k.double(), v.double(), None, False)[0]
+    plain = (fl._forward_plain(q, k, v, None, False)[0].double() - want).abs().max().item()
+    assert _f32_forward_design(d)["fresh"]
+    fresh = (_f32_kernel_arithmetic(q, k, v, None, False)[0].double() - want).abs().max().item()
+    chain = (_f32_kernel_arithmetic(q, k, v, None, False, fresh=False)[0].double() - want).abs().max().item()
+    assert fresh <= 3 * plain and chain > 6 * plain > F32_CLASS_FACTOR * plain, (fresh / plain, chain / plain)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 448, 512])
+def test_f32_forward_design_fits_the_card(d):
+    """Each width of csrc/flash_forward_f32.cu, read from the source: its
+    shared memory (Q in float32, the ring's slabs, the double-buffered S
+    exchange when the consumers split D, the mbarriers and 1 KB of alignment
+    slack) fits the 232,448 bytes a block may have and equals the header's
+    table; a consumer's float32 accumulators (O over its columns, and either
+    S with two slabs' own accumulators and its register sets of Q slices, or
+    P as hi and lo terms with P V's slab accumulators) leave at least 48 of
+    its setmaxnreg registers, and the warpgroups' registers fit the SM's
+    65,536; a tile's slabs are each 32-channel box once, the two
+    consumers' alternating when they split D; the ring holds at least the
+    two slabs a consumer may hold at once, for each consumer; a multicast
+    half of a box is a whole number of 8-row swizzle atoms."""
+    design = _f32_forward_design(d)
+    assert design["smem"] <= SMEM_PER_BLOCK
+    row = re.search(rf"//   D {d}: (\d+) query rows, (\d+)-key tiles, (\d+) slabs, ([\d,]+) bytes",
+                    F32_FORWARD_SOURCE.read_text())
+    assert [int(x.replace(",", "")) for x in row.groups()] == [design["rows"], design["tile"], design["stages"],
+                                                               design["smem"]]
+    assert design["slab"] == 2 * design["tile"] * 128
+    assert design["split"] == (d > 128) and design["rows"] == (64 if design["split"] else 128)
+    columns = d // 2 if design["split"] else d
+    acc, s = 64 * columns // 128, 64 * design["tile"] // 128
+    q_regs = 8 * design["q_sets"]  # 8 a slice: 4 hi and 4 lo
+    s_parts = 1 if design["q_sets"] == 1 else 2  # the slabs' own S accumulators
+    scores = acc + s + s_parts * s + q_regs  # O, S, the slabs' own S accumulators, Q's sets
+    products = acc + design["tile"] + 16 * design["pv_parts"]  # O, P as tile / 8 slices x 2 terms x 4, the parts
+    assert max(scores, products) + 48 <= design["consumer_regs"]
+    assert 128 * design["producer_regs"] + 256 * design["consumer_regs"] <= 65_536
+    # a slab's S accumulator is reused two slabs on, by when its slices must have completed
+    assert 1 <= design["q_sets"] <= 5
+    assert sorted(design["order"]) == list(range(d // 32))
+    if design["split"]:
+        assert [b < d // 64 for b in design["order"]] == [i % 2 == 0 for i in range(d // 32)]
+    assert design["stages"] >= 4 and design["tile"] // 2 % 8 == 0 and 32 // 2 % 8 == 0
+
+
+def test_f32_scratch_and_alignment_checks():
+    """The float32 forward's scratch: K's two terms at Nk keys, V^T's at Nk
+    rounded up to 8 (a ragged ring block's 150 keys take 152); a q that is
+    not 16-byte aligned (TMA's tensor map needs it) is refused with its name."""
+    assert fl.f32_scratch_floats(6, 2048, 512) == 2 * 6 * 512 * (2048 + 2048)
+    assert fl.f32_scratch_floats(3, 150, 64) == 2 * 3 * 64 * (150 + 152)
+    assert fl.f32_scratch_floats(1, 8, 64) == 2 * 64 * 16
+    shifted = torch.zeros(2 * 128 * 64 + 1)[1:].view(1, 2, 128, 64)
+    with pytest.raises(ValueError, match="16-byte aligned tensors; q is not"):
+        fl._check_aligned({"q": shifted}, "forward")
 
 
 def test_wrapper_checks_shapes():
