@@ -39,9 +39,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     csrc/flash_backward_mma.cu on the tensor cores, with P
                     in two bf16 terms where B1b reads the forward's output
                     and in one without gradients (held and timed too); in
-                    float32 B1a runs csrc/flash_forward_f32.cu, three TF32
-                    products on the tensor cores, and B1b
-                    csrc/flash_attention.cu) at the
+                    float32 B1a runs csrc/flash_forward_f32.cu and B1b
+                    csrc/flash_backward_f32.cu, each product as three TF32
+                    products on the tensor cores) at the
                     flagship cross- and self-attention and the 30M
                     cross-attention (left-padded) shapes, pad keys' gradients
                     exact zeros, two backward runs bit-identical (in float32
@@ -97,7 +97,19 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     and backward timed with its kernels named, or its error;
                     every float32 forward's bound at 165 TFLOP/s (three
                     TF32 products) has its bound at the CUDA cores' 67
-                    beside it
+                    beside it; then B1b in float32 (check_f32_backward_kernel,
+                    csrc/flash_backward_f32.cu) at every float32 backward
+                    shape of the main paths (the flagship cross- and
+                    self-attention, the 30M cross-attention, D 192 and 256
+                    padded causal, the flow decoder's patch and the flow
+                    self-attention): dq, dk and dv within 1e-4 of the plain
+                    backward, pad keys' exact zeros, two runs the same bits,
+                    at the flagship cross-attention and the flow decoder's
+                    patch the gradients' error from float64 within
+                    F32_CLASS_FACTOR x the plain float32 version's; the
+                    kernel, the plain backward and the library's backward
+                    timed (its kernels named), the bound at both float32
+                    rates, ms by pass at those two shapes
   4. main_path      flagship generation in bf16 at batch 8 through generate():
                     greedy, rolling window, chunked, left-padded, each REPEATS
                     times; prefill and the decode loop are timed apart inside
@@ -155,7 +167,10 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     patches: 3 warm-up and 5 timed steps (ms a step, patches/s,
                     peak memory); B1a and B1b by head width exact (D 512 once
                     a step each, D 64 twice a self-attention layer for B1a
-                    and once for B1b); the loss finite and falling
+                    and once for B1b); the loss finite and falling; then the
+                    same in the model's default dtype (float32) on one
+                    patch: B1a and B1b in float32 only, by width and dtype
+                    exact
   7. card_vs_cpu    flagship at batch 1 in f32: logits within 1e-3 of the CPU
                     run, greedy tokens identical; then the engine at flagship
                     width with 2 layers in f32 (TF32 off) in paged fp, int8
@@ -989,21 +1004,24 @@ WIDE_BACKWARD_PASSES = {"flash_bwd_delta_kernel": "delta", "flash_bwd_wide_dkdv_
                         "flash_bwd_wide_reduce_kernel": "reduce", "flash_bwd_wide_dq_kernel": "dq"}
 
 
-def wide_backward_pass_ms(fn, calls=3):
-    """Device ms of each pass of one wide bf16 backward call (torch.profiler,
-    median over ``calls`` calls): delta, dK/dV, the split reduce, dQ."""
+def wide_backward_pass_ms(fn, calls=3, passes=None):
+    """Device ms of each pass of one backward call (torch.profiler, median
+    over ``calls`` calls), by ``passes`` (a fragment of each kernel's name:
+    the pass; default the wide bf16 backward's delta, dK/dV, the split
+    reduce, dQ)."""
+    passes = WIDE_BACKWARD_PASSES if passes is None else passes
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    times = {name: [] for name in WIDE_BACKWARD_PASSES.values()}
+    times = {name: [] for name in passes.values()}
     for _ in range(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                for fragment, name in WIDE_BACKWARD_PASSES.items():
+                for fragment, name in passes.items():
                     if fragment in e.key:
                         times[name].append(e.self_device_time_total / 1e3)
     return {name: statistics.median(ts) for name, ts in times.items() if ts}
@@ -1011,7 +1029,7 @@ def wide_backward_pass_ms(fn, calls=3):
 
 def check_wide_backward_kernel():
     """B1b at heads of 192-512 channels (bf16: csrc/flash_backward_wide.cu;
-    f32: csrc/flash_attention.cu's wide tiles) against its plain version
+    f32: csrc/flash_backward_f32.cu) against its plain version
     (the same (o, lse) from B1a's plain version into both): dq, dk and dv
     within flash_limit, pad keys' dk and dv exact zeros, two runs the same
     bits. The flow decoder's shape in bf16, full mask: checked at 1 patch
@@ -1157,6 +1175,123 @@ def check_wide_backward_kernel():
             records.append(rec)
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
+    return records
+
+
+# -------------------------------- phase 3: B1b in float32 (csrc/flash_backward_f32.cu)
+F32_BACKWARD_SHAPES = {  # name: (batch, heads, queries, keys, head dim, left pads of the keys per row or None, causal)
+    "flagship_cross_attention": (16, 10, 512, 1024, 128, None, True),
+    "flagship_self_attention": (16, 10, 512, 512, 128, None, True),
+    "clm_30m_cross_attention": (8, 8, 512, 2304, 64, [0, 0, 7, 100, 300, 511, 1024, 1790], True),
+    "wide_192_padded_causal": (2, 2, 1024, 768, 192, [0, 300], True),
+    "wide_256_padded_causal": (2, 2, 1024, 768, 256, [0, 300], True),
+    # the default-dtype (float32) flow train step's decoder call: one patch
+    # of 182,528 pixel queries over 2,048 latents, one head of 512, full mask
+    "flow_decoder_cross_attention": (1, 1, 182_528, 2048, 512, None, False),
+    "flow_self_attention": (6, 8, 2048, 2048, 64, None, False),  # each of its 24 self-attention layers
+}
+F32_GRAD_CLASS_SHAPES = ("flagship_cross_attention", "flow_decoder_cross_attention")
+# the float32 backward's passes, by a fragment of each kernel's name
+F32_BACKWARD_PASSES = {"flash_bwd_f32_delta_kernel": "delta", "flash_bwd_f32_split_kernel": "split",
+                       "flash_bwd_f32_dkdv_kernel": "dkdv", "flash_bwd_f32_reduce_kernel": "reduce",
+                       "flash_bwd_f32_dq_kernel": "dq"}
+
+
+def f32_grad_class_check(name, got, want, q, k, v, pad, causal, do):
+    """The float32-class check of a float32 backward's gradients ``got``
+    (the plain float32 backward's are ``want``): each of dq, dk and dv within
+    F32_CLASS_FACTOR x the plain float32 version's error against the plain
+    backward in float64 (from its own float64 forward). Returns the record's
+    fields."""
+    o64, lse64 = fl._forward_plain(q.double(), k.double(), v.double(), pad, causal)
+    ref = fl._backward_plain(q.double(), k.double(), v.double(), pad, causal, o64, lse64, do.double())
+    del o64, lse64
+    out = {}
+    for key, x, y, r in zip(("dq", "dk", "dv"), got, want, ref):
+        e_kernel, e_plain = (x.double() - r).abs().max().item(), (y.double() - r).abs().max().item()
+        out[key] = dict(err_vs_float64=e_kernel, plain_f32_err_vs_float64=e_plain,
+                        err_ratio=e_kernel / max(e_plain, 1e-30))
+    del ref
+    torch.cuda.empty_cache()
+    if not all(r["err_ratio"] <= F32_CLASS_FACTOR for r in out.values()):
+        raise AssertionError(f"f32 backward {name}: error vs float64 more than {F32_CLASS_FACTOR} x the plain float32 "
+                             f"version's: {out}")
+    return dict(grad_err_vs_float64=out, err_ratio_limit=F32_CLASS_FACTOR)
+
+
+def check_f32_backward_kernel():
+    """B1b in float32 (csrc/flash_backward_f32.cu: five products, each as
+    three TF32 products on wgmma fed by TMA) at every float32 backward shape
+    of the main paths: the flagship cross- and self-attention, the 30M
+    cross-attention (left-padded), D 192 and 256 padded causal, the
+    default-dtype flow train step's decoder call (one patch, full mask) and
+    its self-attention. From the plain forward's (o, lse): dq, dk and dv
+    within F32_ATOL of the plain backward, pad keys' dk and dv exact zeros,
+    two runs the same bits; at F32_GRAD_CLASS_SHAPES the gradients'
+    error from the float64 plain backward within F32_CLASS_FACTOR x the
+    plain float32 version's. Times per call, L2 flushed: the kernel, the
+    plain backward, the library's backward from a saved forward
+    (F.scaled_dot_product_attention with the same boolean mask, a yardstick
+    used nowhere in the port; its CUDA kernels named, or its error), the
+    bound at 165 TFLOP/s (three TF32 products) and at the CUDA cores' 67,
+    and at the flow decoder and the flagship cross-attention each pass's
+    device ms. Only ops/flash.py's _launch_backward, _forward_plain and
+    _backward_plain are called, so a checkout of another tree's package can
+    be read by the same checks."""
+    g = torch.Generator(DEVICE).manual_seed(SEED + 15)
+    records = []
+    for name, (b, h, nq, nk, d, pads, causal) in F32_BACKWARD_SHAPES.items():
+        q, k, v, pad, do = flash_case(b, h, nq, nk, d, pads, torch.float32, g)
+        o, lse = fl._forward_plain(q, k, v, pad, causal)
+        want = fl._backward_plain(q, k, v, pad, causal, o, lse, do)
+        first = fl._launch_backward(q, k, v, pad, causal, o, lse, do)
+        second = fl._launch_backward(q, k, v, pad, causal, o, lse, do)
+        torch.cuda.synchronize()
+        errs = {key: (x - y).abs().max().item() for key, x, y in zip(("dq", "dk", "dv"), first, want)}
+        if not max(errs.values()) <= F32_ATOL:
+            raise AssertionError(f"f32 backward {name}: kernel vs plain max error {errs} (atol {F32_ATOL})")
+        if pad is not None:
+            at = pad[:, None, :, None].expand_as(first[1])
+            if not ((first[1][at] == 0).all() and (first[2][at] == 0).all()):
+                raise AssertionError(f"f32 backward {name}: pad keys' dK or dV are not exact zeros")
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError(f"f32 backward {name}: two runs on the same inputs differ")
+        rec = dict(kernel="splash_mha_backward", shape=name, dtype="float32", batch=b, heads=h, queries=nq, keys=nk,
+                   head_dim=d, causal=causal, max_abs_err=errs, limit=F32_ATOL, backward_bit_identical=True,
+                   pad_grads_exact_zero=pad is not None)
+        if name in F32_GRAD_CLASS_SHAPES:
+            rec.update(f32_grad_class_check(name, first, want, q, k, v, pad, causal, do))
+        del first, second, want
+        torch.cuda.empty_cache()
+        if causal or pad is not None:
+            bounds, pairs = flash_bounds(q, k, pad, 4)
+            bound, bound_by = bounds["backward"]
+        else:
+            pairs = b * h * nq * nk
+            bound, bound_by = full_mask_bound(b, h, nq, nk, d, 4, backward=True)
+        flow = nq > 100_000
+        call = lambda: fl._launch_backward(q, k, v, pad, causal, o, lse, do)
+        rec.update(visible_pairs=pairs, bound_ms=bound, bound_by=bound_by,
+                   bound_ms_cuda_cores=cuda_core_bound_ms(bound, 10 * d * pairs),
+                   ms=time_ms(call, reps=10 if flow else 25),
+                   plain_ms=time_ms(lambda: fl._backward_plain(q, k, v, pad, causal, o, lse, do), reps=3 if flow else 10))
+        if name in F32_GRAD_CLASS_SHAPES:
+            rec["ms_by_pass"] = wide_backward_pass_ms(call, passes=F32_BACKWARD_PASSES)
+        mask = fl._visibility(nq, nk, pad, causal, q.device).contiguous() if causal or pad is not None else None
+        try:
+            lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask, scale=1.0)
+            lib_backward = lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True)
+            rec.update(library_ms=time_ms(lib_backward, reps=5 if flow else 25),
+                       library_note="backward from a saved forward",
+                       library_kernels=cuda_kernel_names(lib_backward, top=4))
+            del lib_out, lib_leaves
+        except RuntimeError as err:  # no backend of F.scaled_dot_product_attention takes this shape
+            rec.update(library_ms=None, library_error=str(err)[:300])
+        emit(phase="kernel_check", **rec)
+        records.append(rec)
+        del q, k, v, do, o, lse, mask
+        torch.cuda.empty_cache()
     return records
 
 
@@ -1596,24 +1731,26 @@ def flow_train_batch(cfg, patches, seed):
     return {"x": torch.from_numpy(x), "flow": torch.from_numpy(flow)}
 
 
-def train_flow():
+def train_flow(dtype=torch.bfloat16, patches=FLOW_TRAIN_PATCHES):
     """The Perceiver IO optical-flow train step at full width and depth:
-    official_41m_config() with activation checkpointing, bf16 compute over
-    float32 parameters (random, from SEED), AdamW at 1e-3 with clipping at
-    1.0, on a micro-batch of FLOW_TRAIN_PATCHES 368 x 496 patches from
+    official_41m_config() with activation checkpointing, float32 parameters
+    (random, from SEED) in ``dtype`` compute (bf16, or float32: the model's
+    default dtype, which runs B1a and B1b in float32), AdamW at 1e-3 with
+    clipping at 1.0, on a micro-batch of ``patches`` 368 x 496 patches from
     make_flow_pair and the processor, through scripts/convergence.py's flow
     train step (the loss of the probe task, MSE against flow / 20).
     FLOW_TRAIN_WARMUP steps, then FLOW_TRAIN_STEPS timed steps on the same
     batch (each synced: ms a step, patches/s), the counts zeroed just before
     them and read just after: B1a and B1b by head width must be exact (the
     decoder's one head at D 512 once a step each; the self-attention layers
-    at D 64, B1a twice a layer with checkpointing, B1b once), and nothing
-    else launched; the loss finite and lower after the timed steps than at
-    the first. Returns the launches by kernel and width."""
+    at D 64, B1a twice a layer with checkpointing, B1b once), all in
+    ``dtype``, and nothing else launched; the loss finite and lower after
+    the timed steps than at the first. Returns the launches by kernel and
+    width."""
     cfg = dataclasses.replace(official_41m_config(), activation_checkpointing=True)
     layers = cfg.encoder.num_self_attention_layers_per_block * cfg.encoder.num_self_attention_blocks
-    model = OpticalFlow(cfg, device=DEVICE, dtype=torch.bfloat16, seed=SEED)
-    batch = {k: v.to(DEVICE) for k, v in flow_train_batch(cfg, FLOW_TRAIN_PATCHES, SEED + 12).items()}
+    model = OpticalFlow(cfg, device=DEVICE, dtype=None if dtype == torch.float32 else dtype, seed=SEED)
+    batch = {k: v.to(DEVICE) for k, v in flow_train_batch(cfg, patches, SEED + 12).items()}
     tx = build_optimizer(1e-3, max_grad_norm=1.0)
     state = TrainState.create(model, tx, seed=SEED)
     step = make_flow_train_step(model, tx, FLOW_SCALE)
@@ -1633,18 +1770,24 @@ def train_flow():
         losses.append(float(metrics["loss"]))  # the step's one host read, which syncs it
         ms.append((time.perf_counter() - t0) * 1e3)
     counts = {"B1a": dict(fl.forward_launches_by_width), "B1b": dict(fl.backward_launches_by_width)}
+    by_dtype = {"B1a": dict(fl.forward_launches_by_dtype), "B1b": dict(fl.backward_launches_by_dtype)}
     others = {"B5": fl.block_launches, "B2-B4": dk.launches + pk.launches + rk.launches}
     remat = 2 if cfg.activation_checkpointing else 1  # a checkpointed layer's forward runs again in the backward
     expected = {"B1a": {64: remat * layers * FLOW_TRAIN_STEPS, 512: FLOW_TRAIN_STEPS},
                 "B1b": {64: layers * FLOW_TRAIN_STEPS, 512: FLOW_TRAIN_STEPS}}
-    emit(phase="train_flow", model="official_41m_config", dtype="bfloat16 compute, float32 params",
-         activation_checkpointing=cfg.activation_checkpointing, patches=FLOW_TRAIN_PATCHES,
+    name = str(dtype).removeprefix("torch.")
+    expected_by_dtype = {key: {name: sum(widths.values())} for key, widths in expected.items()}
+    emit(phase="train_flow", model="official_41m_config", dtype=f"{name} compute, float32 params",
+         activation_checkpointing=cfg.activation_checkpointing, patches=patches,
          image=list(cfg.encoder.image_shape), steps=FLOW_TRAIN_STEPS, ms_per_step=spread(ms),
-         patches_per_s=spread([FLOW_TRAIN_PATCHES / (t / 1e3) for t in ms]),
+         patches_per_s=spread([patches / (t / 1e3) for t in ms]),
          max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
-         launches_by_head_dim=counts, expected_launches_by_head_dim=expected, other_launches=others)
+         launches_by_head_dim=counts, expected_launches_by_head_dim=expected, launches_by_dtype=by_dtype,
+         other_launches=others)
     if counts != expected or any(others.values()):
         raise AssertionError(f"flow train: launches {counts}, expected {expected}; others {others}")
+    if dtype == torch.float32 and by_dtype != expected_by_dtype:
+        raise AssertionError(f"flow train: launches by dtype {by_dtype}, expected {expected_by_dtype}")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"flow train: the loss did not fall from {losses[0]}: {losses}")
     del model, state, step, batch
@@ -1659,7 +1802,7 @@ def card_vs_cpu_flow_train():
     and self-attention heads (64) pass the flash gate: the card's loss
     within 1e-5 relative of the port's CPU run, every gradient within 1e-3
     x its RMS, 3 AdamW steps' losses within 1e-4 relative; on the card B1b
-    launched at D 64 and at D 512 (csrc/flash_attention.cu's wide tiles).
+    launched at D 64 and at D 512 (csrc/flash_backward_f32.cu).
     The key projections' biases, whose gradient the softmax cancels, are
     held to 1e-6 x the whole gradient's RMS on both sides instead."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2399,7 +2542,7 @@ def main() -> int:
     built = cuda_build.build()
     for source, rec in built.items():
         emit(phase="build", source=f"perceiver_io_torch/csrc/{source}.cu", **rec)
-    for source in ("flash_forward_wide", "flash_backward_wide", "flash_forward_f32"):
+    for source in ("flash_forward_wide", "flash_backward_wide", "flash_forward_f32", "flash_backward_f32"):
         wide_ptxas(source, built[source]["ptxas"])
 
     decode_results = check_decode_kernel()
@@ -2410,6 +2553,7 @@ def main() -> int:
     flow_flash_results = check_flow_flash_kernel()
     wide_forward_results = check_wide_forward_kernel()
     wide_backward_results = check_wide_backward_kernel()
+    f32_backward_results = check_f32_backward_kernel()
     launches = {"B2": main_path()}
     if launches["B2"] == 0:
         raise AssertionError("the generation path never launched B2")
@@ -2434,6 +2578,10 @@ def main() -> int:
                              f"{flow_train_launches}")
     for key in ("B1a", "B1b"):
         launches[key] += flow_train_launches[key][64]
+    flow_train_f32_launches = train_flow(torch.float32, patches=1)  # the model's default dtype, one patch
+    if not all(flow_train_f32_launches[k].get(d) for k in ("B1a", "B1b") for d in (64, 512)):
+        raise AssertionError(f"the float32 flow training path did not launch B1a and B1b at D = 64 and 512: "
+                             f"{flow_train_f32_launches}")
     card_vs_cpu()
     card_vs_cpu_serving()
     card_vs_cpu_chunked()
@@ -2520,14 +2668,18 @@ def main() -> int:
         bound_ms=head["bound_ms_checked_batch"], bound_by=head["bound_by_checked_batch"],
         library_ms=head["library_ms_checked_batch"],
     ))
-    head = next(r for r in flash_results if r["shape"] == "flagship_cross_attention" and r["dtype"] == "float32")
-    f32_backward = [r for r in flash_results + wide_backward_results if r["dtype"] == "float32"]
+    # the float32 backward on the float32 flow train step and the epe task;
+    # times at the flagship cross-attention
+    head = next(r for r in f32_backward_results if r["shape"] == "flagship_cross_attention")
+    f32_backward = [r for r in flash_results + wide_backward_results + f32_backward_results
+                    if r["dtype"] == "float32"]
     kernels.append(dict(
-        name="splash_mha_backward_f32", route="cuda", source="perceiver_io_torch/csrc/flash_attention.cu",
-        replaces="perceiver_io_tpu/ops/flash.py:164", launches=convergence_launches["B1b"],
+        name="splash_mha_backward_f32", route="cuda", source="perceiver_io_torch/csrc/flash_backward_f32.cu",
+        replaces="perceiver_io_tpu/ops/flash.py:164",
+        launches=convergence_launches["B1b"] + sum(flow_train_f32_launches["B1b"].values()),
         max_abs_err=max(r["max_abs_err"][e] for r in f32_backward for e in ("dq", "dk", "dv")),
-        ms=head["backward_ms"], plain_ms=head["plain_backward_ms"], bound_ms=head["backward_bound_ms"],
-        bound_by=head["backward_bound_by"], library_ms=head["library_backward_ms"],
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=head["library_ms"],
     ))
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,9 @@
 //
 // Replaces the backward of perceiver_io_tpu/ops/flash.py:splash_mha (the
 // custom VJP of the Pallas splash kernel, which runs a dQ kernel and a dK/dV
-// kernel) for bfloat16 inputs. The float32 backward, and the float32 forward,
-// stay in flash_attention.cu; the bf16 forward is flash_forward_mma.cu. Same
-// function, same layouts as that file's backward:
+// kernel) for bfloat16 inputs. The float32 backward is flash_backward_f32.cu,
+// the float32 forward flash_forward_f32.cu; the bf16 forward is
+// flash_forward_mma.cu. Same function, same layouts as the float32 backward:
 //   q      (B, H, Nq, D)  bfloat16, already scaled and rotated queries
 //   k, v   (B, H, Nk, D)  bfloat16 keys and values
 //   pad    (B, Nk)        uint8, 1 = padding key (the splash segment id 0), or null

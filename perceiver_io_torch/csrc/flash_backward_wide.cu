@@ -1,7 +1,7 @@
 // Flash attention backward in bfloat16 on Hopper (sm_90a) for wide heads:
 // D = 192, 256, ..., 512 (every multiple of 64 above 128). Kernel B1b for
 // bf16 inputs at those widths; heads of 64 and 128 channels take
-// flash_backward_mma.cu, the float32 backward stays in flash_attention.cu.
+// flash_backward_mma.cu, float32 inputs flash_backward_f32.cu.
 //
 // Replaces the backward of perceiver_io_tpu/ops/flash.py:splash_mha (the
 // custom VJP of the Pallas splash kernel, which runs a dK/dV kernel and a dQ

@@ -7,9 +7,8 @@
 // inputs, and perceiver_io_tpu/parallel/ring_attention.py:_splash_fwd_block
 // (ring attention's fully visible blocks: the same kernel with no causal mask,
 // whose float32 output and log-sum-exp the ring merges). The float32 forward
-// stays in flash_attention.cu; the bf16 backward (B1b) is
-// flash_backward_mma.cu. Same function, same layouts as flash_attention.cu's
-// forward:
+// is flash_forward_f32.cu; the bf16 backward (B1b) is flash_backward_mma.cu.
+// Same function, same layouts as flash_forward_f32.cu:
 //   q     (B, H, Nq, D)  bfloat16, already scaled and rotated queries
 //   k, v  (B, H, Nk, D)  bfloat16 keys and values
 //   pad   (B, Nk)        uint8, 1 = padding key (the splash segment id 0), or null

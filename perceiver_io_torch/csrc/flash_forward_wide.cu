@@ -1,7 +1,7 @@
 // Flash attention forward in bfloat16 on Hopper (sm_90a) for wide heads:
 // D = 192, 256, ..., 512 (every multiple of 64 above 128). Kernel B1a for
 // bf16 inputs at those widths (and B5 with it); heads of 64 and 128 channels
-// take flash_forward_mma.cu, float32 inputs flash_attention.cu.
+// take flash_forward_mma.cu, float32 inputs flash_forward_f32.cu.
 //
 // Replaces the forward of perceiver_io_tpu/ops/flash.py:splash_mha (the Pallas
 // splash kernel built by `_build_kernel` via `make_splash_mha`) at the head

@@ -1,13 +1,13 @@
 // Hopper (sm_90a) building blocks written as inline PTX, shared by the
 // kernels that run on wgmma fed by TMA (flash_forward_wide.cu,
-// flash_backward_wide.cu and flash_forward_f32.cu): mbarriers, the TMA tile
-// load with and without cluster multicast and the TMA tile store, the wgmma
-// shared-memory descriptor with its fence, commit and wait, the proxy fence
-// for operands stored by threads, the wgmma products themselves (bf16, and
-// tf32 with the split of a float32 into TF32 terms), setmaxnreg, named
-// barriers and the host-side encoding of a tensor map. Plain PTX, no
-// CuTe/CUTLASS templates, so that a source that includes it compiles in
-// seconds.
+// flash_backward_wide.cu, flash_forward_f32.cu and flash_backward_f32.cu):
+// mbarriers, the TMA tile load with and without cluster multicast and the
+// TMA tile store, the wgmma shared-memory descriptor with its fence, commit
+// and wait, the proxy fence for operands stored by threads, the wgmma
+// products themselves (bf16, and tf32 with the split of a float32 into TF32
+// terms), setmaxnreg, named barriers and the host-side encoding of a tensor
+// map. Plain PTX, no CuTe/CUTLASS templates, so that a source that includes
+// it compiles in seconds.
 //
 // Layout convention: every tile in shared memory is stored as boxes of 64
 // bf16 channels (or 32 float32 ones: 128 bytes a row) written by TMA with the
@@ -44,6 +44,11 @@ __device__ __forceinline__ void mbar_init_fence() {
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+// One arrival on a barrier of this block (release: the arriving thread's
+// earlier shared-memory reads are done before the phase can complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 // One arrival on the barrier at the same offset in the shared memory of cluster block `rank`.
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
@@ -325,7 +330,8 @@ struct Wgmma<256> {
   }
 };
 
-// TF32 products for float32-class arithmetic (flash_forward_f32.cu): x as a
+// TF32 products for float32-class arithmetic (flash_forward_f32.cu and
+// flash_backward_f32.cu): x as a
 // TF32 value (cvt.rna: round to nearest, ties away from zero; the low 13 bits
 // of the float32 word zero), and x split into hi + lo with lo the TF32
 // rounding of x - hi, so that a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b.
@@ -337,6 +343,16 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+// The same split of a finite x in five integer and float operations
+// (cvt.rna.tf32.f32 compiles to about five a rounding, as it also passes
+// infinities and NaNs through): the float32 word plus 0x1000 with its low 13
+// bits cleared is cvt.rna's result for every finite x that does not round
+// past the largest float32. For the operands that a kernel splits on its hot
+// path; x - hi is exact.
+__device__ __forceinline__ void split_tf32_finite(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
 // wgmma.mma_async m64nNk8 with tf32 inputs and float32 sums (d += A B): A

@@ -19,8 +19,9 @@ to 512 channels (two passes on ``wgmma`` fed by TMA, warp-specialised,
 the streamed tiles multicast over a cluster of two blocks: dK/dV, its query
 range split over blocks whose float32 partial sums a reduce adds in split
 order, writes dS to a scratch; dQ multiplies that dS by K) and
-``csrc/flash_attention.cu`` for float32 at every width (on the CUDA cores;
-each file's header says what bounds its kernels). On a CPU tensor the same Function computes
+``csrc/flash_backward_f32.cu`` for float32 at every width (the same two
+passes on ``wgmma`` fed by TMA, each of the five products as three TF32
+products; each file's header says what bounds its kernels). On a CPU tensor the same Function computes
 the kernels' arithmetic in plain PyTorch (``_forward_plain``,
 ``_backward_plain``). ``flash_attention_reference`` is the plain version
 written with autograd-native ops: the CUDA kernels and the CPU route are held
@@ -78,6 +79,10 @@ _WIDE_KEY_ROWS = 32
 _WIDE_QUERY_ROWS = 64
 _WIDE_CLUSTER = 2
 _WIDE_WAVES = 8
+# flash_backward_f32.cu's dK/dV pass: query rows a tile (its kQTile), and the
+# waves of one-block-an-SM that its grid should make
+_F32_QUERY_TILE = 128
+_F32_WAVES = 4
 
 # Launches since import (or since the caller last reset them to 0): one per
 # forward kernel call (B1a; also counted by head width in
@@ -211,7 +216,7 @@ class _FlashAttention(torch.autograd.Function):
     CUDA tensor bfloat16 runs ``flash_forward_mma.cu`` and
     ``flash_backward_mma.cu`` (heads of 64 and 128 channels) or
     ``flash_forward_wide.cu`` and ``flash_backward_wide.cu`` (192 to 512),
-    float32 ``flash_forward_f32.cu`` and ``flash_attention.cu``. Saves (q, k, v, o, lse) and
+    float32 ``flash_forward_f32.cu`` and ``flash_backward_f32.cu``. Saves (q, k, v, o, lse) and
     the pad mask, with o the float32 (or wider) output before its cast to
     q's dtype; a wide bfloat16 forward without gradients writes o in
     bfloat16 already, and returns it uncast."""
@@ -240,7 +245,7 @@ class _FlashAttention(torch.autograd.Function):
 
 # ------------------------------------------------------------------ CUDA
 _DTYPES = (torch.float32, torch.bfloat16)
-_bwd_fn = None
+_f32_bwd_fn = None
 _f32_fn = None
 _mma_fn = None
 _wide_fn = None
@@ -248,20 +253,20 @@ _mma_bwd_fn = None
 _wide_bwd_fn = None
 
 
-def _backward_entry():
-    """The float32 backward's C entry point (``csrc/flash_attention.cu``),
+def _f32_backward_entry():
+    """The float32 backward's C entry point (``csrc/flash_backward_f32.cu``),
     built and loaded at first use (never at import)."""
-    global _bwd_fn
-    if _bwd_fn is None:
+    global _f32_bwd_fn
+    if _f32_bwd_fn is None:
         from perceiver_io_torch.ops.cuda_build import library
 
-        fn = library("flash_attention").flash_attention_backward
+        fn = library("flash_backward_f32").flash_backward_f32
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q k v pad o lse dout delta dq dk dv B H Nq Nk D causal stream
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        # q k v pad o lse dout delta scratch ds ws dq dk dv B H Nq Nk D causal splits stream
+        fn.argtypes = [p] * 14 + [i] * 7 + [p]
         fn.restype = i
-        _bwd_fn = fn
-    return _bwd_fn
+        _f32_bwd_fn = fn
+    return _f32_bwd_fn
 
 
 def _f32_entry():
@@ -371,6 +376,34 @@ def wide_backward_splits(batch_heads: int, n_q: int, n_k: int, head_dim: int, sm
     return max(1, min(want, -(-q_tiles // 4), 65535))
 
 
+def f32_backward_splits(batch_heads: int, n_q: int, n_k: int, head_dim: int, sms: int) -> int:
+    """How many blocks ``flash_backward_f32.cu``'s dK/dV pass splits each key
+    block's query range over: enough for ``_F32_WAVES`` waves of one block an
+    SM (its shared memory allows one) over the (batch*head, key block) pairs,
+    and no more than one split per 4 of its 128-query tiles. Key blocks are
+    64 keys up to D 128 and 32 above: the flow decoder's patch (64 key blocks
+    of 32) gets 9 on 132 SMs, the flagship's 160 heads none."""
+    key_blocks = -(-n_k // (64 if head_dim <= 128 else 32))
+    q_tiles = -(-n_q // _F32_QUERY_TILE)
+    want = -(-_F32_WAVES * sms // (batch_heads * key_blocks))
+    return max(1, min(want, -(-q_tiles // 4), 65535))
+
+
+def f32_backward_scratch_floats(batch_heads: int, n_k: int, head_dim: int) -> int:
+    """Float32 words of ``flash_backward_f32.cu``'s scratch: K and V as TF32
+    high and low terms (4 x B*H x Nk x D) and K transposed, as the same two
+    terms, its keys padded with zeros to a multiple of 8 (2 x B*H x D x
+    Nk8)."""
+    n_k8 = -(-n_k // 8) * 8
+    return 2 * batch_heads * head_dim * (2 * n_k + n_k8)
+
+
+def _f32_ds_keys(n_k: int) -> int:
+    """The keys of a row of ``flash_backward_f32.cu``'s dS scratch: n_k
+    rounded up to 4, so that every row is 16-byte aligned for TMA."""
+    return -(-n_k // 4) * 4
+
+
 def _wide_query_rows(n_q: int) -> int:
     """The query rows of ``flash_backward_wide.cu``'s dS^T scratch: n_q
     rounded up to whole query tiles, so that every row is 128-byte aligned
@@ -477,39 +510,48 @@ def ring_block_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_backward(q, k, v, pad_mask, causal, o, lse, do) -> Tuple[torch.Tensor, ...]:
     """Launch B1b (its delta, dK/dV and dQ kernels) on the current stream, or
-    raise: bfloat16 takes the tensor-core kernels (``flash_backward_mma``
-    for heads of 64 and 128 channels, ``flash_backward_wide`` for 192 to
-    512, whose dK/dV pass splits each key tile's queries over
-    ``wide_backward_splits`` blocks and writes dS, as two bf16 terms, to a
-    scratch of 4 x B x H x Nk x Nq bytes that its dQ pass multiplies by K),
-    float32 ``flash_attention_backward``."""
+    raise: bfloat16 takes ``flash_backward_mma`` for heads of 64 and 128
+    channels and ``flash_backward_wide`` for 192 to 512, whose dK/dV pass
+    splits each key tile's queries over ``wide_backward_splits`` blocks and
+    writes dS, as two bf16 terms, to a scratch of 4 x B x H x Nk x Nq bytes
+    that its dQ pass multiplies by K; float32 takes ``flash_backward_f32``
+    (every product as three TF32 products on the tensor cores), whose dK/dV
+    pass splits each key block's queries over ``f32_backward_splits`` blocks
+    and writes dS in float32 to a scratch of 4 x B x H x Nq x Nk4 bytes that
+    its dQ pass multiplies by K."""
     global backward_launches
     pad = _pad_bytes(pad_mask)
     _check_cuda({"q": q, "k": k, "v": v, "pad_mask": pad, "o": o, "lse": lse, "do": do}, q)
     if do.dtype != q.dtype or o.dtype != torch.float32 or lse.dtype != torch.float32:
         raise ValueError(f"do must be in q's dtype, o and lse float32; got {do.dtype}, {o.dtype}, {lse.dtype}")
+    _check_aligned({"q": q, "k": k, "v": v, "do": do}, "backward")
     b, h, n_q, d = q.shape
+    n_k = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b, h, n_q, dtype=torch.float32, device=q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pad is None else pad.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, n_q, k.shape[2], d, int(causal))
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if pad is None else pad.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), delta.data_ptr())
+    sizes = (b, h, n_q, n_k, d, int(causal))
+    outputs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     if q.dtype == torch.bfloat16 and d in _NARROW_HEAD_DIMS:
-        _check_aligned({"q": q, "k": k, "v": v, "do": do}, "backward")
         name = "flash_backward_mma"
-        err = _mma_backward_entry()(*args, stream)
+        err = _mma_backward_entry()(*pointers, *outputs, *sizes, stream)
     elif q.dtype == torch.bfloat16:
-        _check_aligned({"q": q, "k": k, "v": v, "do": do}, "backward")
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits = wide_backward_splits(b * h, n_q, k.shape[2], d, sms)
-        ws = torch.empty(2 * b * h * splits * k.shape[2] * d, dtype=torch.float32, device=q.device)
-        ds = torch.empty(2 * b * h * k.shape[2] * _wide_query_rows(n_q), dtype=torch.bfloat16, device=q.device)
+        splits = wide_backward_splits(b * h, n_q, n_k, d, sms)
+        ws = torch.empty(2 * b * h * splits * n_k * d, dtype=torch.float32, device=q.device)
+        ds = torch.empty(2 * b * h * n_k * _wide_query_rows(n_q), dtype=torch.bfloat16, device=q.device)
         name = "flash_backward_wide"
-        err = _wide_backward_entry()(*args[:8], ws.data_ptr(), ds.data_ptr(), *args[8:], splits, stream)
+        err = _wide_backward_entry()(*pointers, ws.data_ptr(), ds.data_ptr(), *outputs, *sizes, splits, stream)
     else:
-        name = "flash_attention_backward"
-        err = _backward_entry()(*args, stream)
+        splits = f32_backward_splits(b * h, n_q, n_k, d, sms)
+        scratch = torch.empty(f32_backward_scratch_floats(b * h, n_k, d), dtype=torch.float32, device=q.device)
+        ds = torch.empty(b * h * n_q * _f32_ds_keys(n_k), dtype=torch.float32, device=q.device)
+        ws = torch.empty(2 * b * h * splits * n_k * d if splits > 1 else 4, dtype=torch.float32, device=q.device)
+        name = "flash_backward_f32"
+        err = _f32_backward_entry()(*pointers, scratch.data_ptr(), ds.data_ptr(), ws.data_ptr(), *outputs, *sizes,
+                                    splits, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     backward_launches += 1

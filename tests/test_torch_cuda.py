@@ -389,8 +389,8 @@ def _flash_limit(want, dtype):
 def test_flash_kernels_match_plain(card, monkeypatch, dtype, b, h, nq, nk, d, pads, causal):
     """B1a and B1b (left-padded keys) against the plain version and its
     autograd gradients (bf16: flash_forward_mma.cu and flash_backward_mma.cu;
-    float32: flash_forward_f32.cu and flash_attention.cu); pad keys get exact-zero dK and dV, queries
-    that see no key exact-zero outputs."""
+    float32: flash_forward_f32.cu and flash_backward_f32.cu); pad keys get
+    exact-zero dK and dV, queries that see no key exact-zero outputs."""
     g = torch.Generator(card).manual_seed(nq)
     q = (torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5).to(dtype)
     k, v = (torch.randn(b, h, nk, d, generator=g, device=card).to(dtype) for _ in range(2))
@@ -453,10 +453,10 @@ def test_flash_forward_route(card, monkeypatch, dtype, entry):
 @pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "mma"), (torch.float32, "fp32")])
 def test_flash_backward_route(card, monkeypatch, dtype, entry):
     """bfloat16 reaches the tensor-core backward (flash_backward_mma.cu),
-    float32 flash_attention.cu's backward; each backward adds one to
-    backward_launches."""
+    float32 flash_backward_f32.cu's (three TF32 products on the tensor
+    cores); each backward adds one to backward_launches."""
     calls = []
-    mma, f32 = fl._mma_backward_entry(), fl._backward_entry()
+    mma, f32 = fl._mma_backward_entry(), fl._f32_backward_entry()
 
     def spy_mma(*args):
         calls.append("mma")
@@ -467,7 +467,7 @@ def test_flash_backward_route(card, monkeypatch, dtype, entry):
         return f32(*args)
 
     monkeypatch.setattr(fl, "_mma_backward_entry", lambda: spy_mma)
-    monkeypatch.setattr(fl, "_backward_entry", lambda: spy_fp32)
+    monkeypatch.setattr(fl, "_f32_backward_entry", lambda: spy_fp32)
     leaves = [torch.randn(1, 2, 128, 64, device=card).to(dtype).requires_grad_() for _ in range(3)]
     before = fl.backward_launches
     for _ in range(2):
@@ -697,7 +697,7 @@ WIDE_BACKWARD_DIMS = [192, 256, 320, 384, 448, 512]
 def test_wide_flash_backward_matches_plain(card, monkeypatch, dtype, d, causal):
     """B1b at the wide heads (bf16: flash_backward_wide.cu, whose dK/dV
     pass splits the queries over 2 blocks a key tile at these shapes;
-    float32: flash_attention.cu's 16 x 32 tiles) against autograd of the
+    float32: flash_backward_f32.cu) against autograd of the
     plain version, at ragged sizes with left-padded keys: dq, dk and dv
     within B1's limits, pad keys' dk and dv exact zeros, and (causal) the
     queries that see no key exact-zero dq. 300 queries are 5 of the dQ
@@ -728,6 +728,56 @@ def test_wide_flash_backward_matches_plain(card, monkeypatch, dtype, d, causal):
         torch.testing.assert_close(x.float(), y.float(), **_flash_limit(y, dtype))
     assert (got[1][at] == 0).all() and (got[2][at] == 0).all()
     assert (got[0].transpose(1, 2)[blind] == 0).all()
+
+
+F32_BACKWARD_DIMS = [64, 128, 192, 256, 320, 384, 448, 512]
+# the float32-class limit, as chip_smoke.py's: a float32 kernel's error from
+# the float64 plain version at most this many times the plain float32 one's
+F32_CLASS_FACTOR = 4
+
+
+@pytest.mark.parametrize("d", F32_BACKWARD_DIMS)
+def test_f32_flash_backward_at_every_width(card, d):
+    """B1b in float32 (flash_backward_f32.cu) at every head width, padded
+    causal and ragged: 1,100 queries over 300 keys (9 of the dK/dV pass's
+    128-query tiles, the last ragged; a ragged last key block; 9 of the dQ
+    pass's), row 1's first 60 keys padding (a pad-only key block) and its
+    first queries seeing no key, the dK/dV pass's query range over 3 splits
+    and over 1. From the plain forward's (o, lse): dq, dk and dv float32
+    class, within F32_CLASS_FACTOR x the plain float32 backward's error from
+    the float64 one (an absolute limit is not one here: dq reaches ~70,
+    where 1e-4 is 16 float32 steps), pad keys' dk and dv exact zeros, the
+    queries that see nothing exact-zero dq, each split count the same bits
+    twice; one launch a call, counted by width and dtype."""
+    g = torch.Generator(card).manual_seed(d)
+    b, h, nq, nk = 2, 1, 1100, 300
+    q = torch.randn(b, h, nq, d, generator=g, device=card) * d**-0.5
+    k, v, do = (torch.randn(b, h, n, d, generator=g, device=card) for n in (nk, nk, nq))
+    pad = torch.arange(nk, device=card)[None, :] < torch.tensor([0, 60], device=card)[:, None]
+    o, lse = fl._forward_plain(q, k, v, pad, True)
+    plain = fl._backward_plain(q, k, v, pad, True, o, lse, do)
+    o64, lse64 = fl._forward_plain(q.double(), k.double(), v.double(), pad, True)
+    want = fl._backward_plain(q.double(), k.double(), v.double(), pad, True, o64, lse64, do.double())
+    plain_err = [(x.double() - y).abs().max().item() for x, y in zip(plain, want)]
+    at = pad[:, None, :, None].expand_as(want[1])
+    blind = torch.isneginf(lse)
+    assert blind.any()
+    for splits in (3, 1):
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(fl, "f32_backward_splits", lambda *args: splits)
+            before = (fl.backward_launches, fl.backward_launches_by_width.get(d, 0),
+                      fl.backward_launches_by_dtype.get("float32", 0))
+            first = fl._launch_backward(q, k, v, pad, True, o, lse, do)
+            second = fl._launch_backward(q, k, v, pad, True, o, lse, do)
+            torch.cuda.synchronize()
+            assert (fl.backward_launches, fl.backward_launches_by_width[d],
+                    fl.backward_launches_by_dtype["float32"]) == tuple(x + 2 for x in before)
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+        for name, x, y, e in zip(("dq", "dk", "dv"), first, want, plain_err):
+            err = (x.double() - y).abs().max().item()
+            assert err <= F32_CLASS_FACTOR * e, (splits, name, err, e)
+        assert (first[1][at] == 0).all() and (first[2][at] == 0).all()
+        assert (first[0][blind] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

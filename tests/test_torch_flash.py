@@ -6,9 +6,10 @@ gradients at the wide heads (D = 192, 256, 512) that the optical-flow
 decoder needs; and the bf16 CUDA kernels' roundings, emulated in plain
 PyTorch (the forward's P; the backward's P and dS, with its tiling and, at
 the wide heads, its query splits), against the plain version's limits; and
-the float32 forward's three TF32 products (its tiling read from
-csrc/flash_forward_f32.cu, and a model of the tensor cores' truncating
-float32 sums) against the float64 plain version.
+the float32 forward's and backward's three TF32 products (their tiling read
+from csrc/flash_forward_f32.cu and csrc/flash_backward_f32.cu, and a model of
+the tensor cores' truncating float32 sums) against the float64 plain
+version.
 
 Tolerances: the forward within atol 2e-5, as the JAX package's own tests
 hold splash against its XLA formulation; dq, dk and dv against ``jax.grad``
@@ -38,6 +39,7 @@ KERNEL_SOURCE = Path(fl.__file__).resolve().parent.parent / "csrc" / "flash_back
 WIDE_KERNEL_SOURCE = KERNEL_SOURCE.with_name("flash_backward_wide.cu")
 WIDE_FORWARD_SOURCE = KERNEL_SOURCE.with_name("flash_forward_wide.cu")
 F32_FORWARD_SOURCE = KERNEL_SOURCE.with_name("flash_forward_f32.cu")
+F32_BACKWARD_SOURCE = KERNEL_SOURCE.with_name("flash_backward_f32.cu")
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block may have
 
 
@@ -1096,3 +1098,288 @@ def test_wrapper_checks_shapes():
         fl.splash_mha(q, q, q, pad_mask=torch.zeros(1, 5, dtype=torch.bool))
     with pytest.raises(ValueError, match="share a dtype"):
         fl.splash_mha(q, q.double(), q)
+
+
+# ------------------------------------------------ B1b in float32 (TF32 x 3)
+def _f32_backward_design(d):
+    """csrc/flash_backward_f32.cu's design at head width d, read from the
+    source: the dK/dV pass's key block, query tile, the queries a fresh dV^T
+    / dK^T accumulator sums, the k = 8 slices a fresh accumulator of S or dP
+    sums, its ring slots and their bytes, and its
+    shared memory (``dkdv_smem`` evaluated at these); the dQ pass's query
+    rows, key tile, slots, slot bytes and shared memory (``dq_smem``); the
+    setmaxnreg registers of the producer and the consumers."""
+    src = F32_BACKWARD_SOURCE.read_text()
+    design = dict(key_block=_by_width(src, "key_block", d), stages=_by_width(src, "dkdv_stages", d))
+    sets = re.fullmatch(r"D >= (\d+) \? (\d+) : (\d+)",
+                        re.search(r"constexpr int a_sets\(\) \{\s*return ([^;]+);", src).group(1))
+    design["a_sets"] = int(sets.group(2)) if d >= int(sets.group(1)) else int(sets.group(3))
+    parts = re.fullmatch(r"D > (\d+) \? (\d+) : (\d+)",
+                         re.search(r"constexpr int dq_parts\(\) \{\s*return ([^;]+);", src).group(1))
+    design["dq_parts"] = int(parts.group(2)) if d > int(parts.group(1)) else int(parts.group(3))
+    for key, name in (("q_tile", "kQTile"), ("chain", "kChainQueries"), ("score_slices", "kScoreSlices"),
+                      ("slot", "kSlot"), ("dq_rows", "kDqRows"), ("dq_keys", "kDqKeys"), ("dq_slot", "kDqSlot"),
+                      ("dq_stages", "kDqStages"), ("consumer_regs", "kConsumerRegs"),
+                      ("producer_regs", "kProducerRegs")):
+        design[key] = _constant(src, name)
+
+    def smem(name, head):
+        expr = re.search(rf"constexpr size_t {name}\(\) \{{\s*return ([^;]+);", src).group(1)
+        pds = re.search(r"constexpr int pds_bytes\(\) \{[^}]*?return ([^;]+);", src).group(1)
+        for word, value in (("pds_bytes<D>()", f"({pds})"), ("dkdv_stages<D>()", design["stages"]),
+                            ("key_block<D>()", design["key_block"]), ("sizeof(float)", 4),
+                            ("sizeof(uint64_t)", 8), ("kQTile", design["q_tile"]), ("kSlot", design["slot"]),
+                            ("kDqStages", design["dq_stages"]), ("kDqSlot", design["dq_slot"]), ("D", head)):
+            expr = expr.replace(word, str(value))
+        return eval(" ".join(expr.split()))
+
+    design["smem"], design["dq_smem"] = smem("dkdv_smem", d), smem("dq_smem", d)
+    return design
+
+
+def _zero_pad(x, dim, multiple):
+    """x with zeros appended along dim up to a multiple of ``multiple`` (the
+    kernel's tiles past a tensor's end read zeros)."""
+    extra = -x.shape[dim] % multiple
+    if not extra:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, torch.zeros(shape, dtype=x.dtype)], dim)
+
+
+def _f32_backward_arithmetic(q, k, v, pad, causal, o, lse, do, terms=3, chain=None, splits=1):
+    """csrc/flash_backward_f32.cu's arithmetic in PyTorch, its design read
+    from the source, in the truncating model of the tensor cores' sums:
+    delta = rowsum(dO O) in float32; S and dP a ``score_slices`` k = 8
+    slices (all three terms) into a fresh accumulator, added to S (dP) in
+    float32; P = exp(S - lse)
+    on the visible pairs (zero for a row with lse = -inf), kept as its hi
+    and lo TF32 terms, dS = (hi + lo) (dP - delta); the dK/dV pass over key
+    blocks that are live (a key in range
+    and not padding, and seen by some query), from the 128-query tile that
+    sees the block's first key on, the tiles cut into ``splits`` ranges,
+    dV^T = dO^T P and dK^T = Q^T dS a ``chain`` queries (default the
+    source's) into a fresh accumulator added to each split's float32 sums,
+    the splits added in order; dQ = dS K a 32-key tile into a fresh
+    accumulator added to dQ in float32. Returns (dq, dk, dv)."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    design = _f32_backward_design(d)
+    bk, tile = design["key_block"], design["q_tile"]
+    chain = chain or design["chain"]
+    width = 8 * design["score_slices"]
+    visible = fl._visibility(nq, nk, pad, causal, q.device).expand(b, 1, nq, nk)
+    finite = torch.isfinite(lse)
+    delta = (do * o).sum(-1)
+
+    def scores(x, y):
+        s = torch.zeros(b, h, nq, nk)
+        for c0 in range(0, d, width):
+            s = s + _tensor_core_products(torch.zeros_like(s), x[..., c0:c0 + width], y[..., c0:c0 + width], terms)
+        return s
+
+    s, dp = scores(q, k), scores(do, v)
+    p = torch.where(visible & finite[..., None],
+                    torch.exp(s - torch.where(finite, lse, torch.zeros_like(lse))[..., None]), torch.zeros_like(s))
+    p_hi = _tf32(p)
+    ds = (p_hi + _tf32(p - p_hi)) * (dp - delta[..., None])
+    # dK/dV: the kernel's key blocks, tiles, splits and chains (rows past Nq read zeros)
+    rows = -(-nq // tile) * tile
+    qz, doz, pz, dsz = (_zero_pad(x, 2, tile) for x in (q, do, p, ds))
+    dk, dv = torch.zeros(b, h, nk, d), torch.zeros(b, h, nk, d)
+    off = nk - nq
+    for k0 in range(0, nk, bk):
+        keys = slice(k0, k0 + bk)
+        live = pad is None or not bool(pad[:, keys].all())  # every head of a batch row: the kernel's rows are (b, h)
+        if not live or (causal and k0 > off + nq - 1):
+            continue
+        t0 = max(0, k0 - off) // tile if causal else 0
+        n_t = rows // tile - t0
+        out_k, out_v = None, None
+        for split in range(splits):
+            acc_k, acc_v = torch.zeros(b, h, d, pz[..., keys].shape[-1]), torch.zeros(b, h, d, pz[..., keys].shape[-1])
+            for t in range(t0 + n_t * split // splits, t0 + n_t * (split + 1) // splits):
+                for c0 in range(t * tile, (t + 1) * tile, chain):
+                    c = slice(c0, c0 + chain)
+                    for acc, x, y in ((acc_v, doz, pz), (acc_k, qz, dsz)):
+                        fresh = torch.zeros_like(acc)
+                        acc += _tensor_core_products(fresh, x[..., c, :].transpose(-1, -2),
+                                                     y[..., c, keys].transpose(-1, -2), terms)
+            out_k = acc_k if out_k is None else out_k + acc_k
+            out_v = acc_v if out_v is None else out_v + acc_v
+        dk[:, :, keys], dv[:, :, keys] = out_k.transpose(-1, -2), out_v.transpose(-1, -2)
+    if pad is not None:  # the kernel writes pad keys' dK and dV as zeros
+        at = pad[:, None, :, None].expand_as(dk)
+        dk, dv = dk.masked_fill(at, 0.0), dv.masked_fill(at, 0.0)
+    # dQ: a 32-key tile at a time
+    dq = torch.zeros(b, h, nq, d)
+    dsk, kz = _zero_pad(ds, 3, design["dq_keys"]), _zero_pad(k, 2, design["dq_keys"])
+    for k0 in range(0, dsk.shape[-1], design["dq_keys"]):
+        c = slice(k0, k0 + design["dq_keys"])
+        dq = dq + _tensor_core_products(torch.zeros_like(dq), dsk[..., c], kz[..., c, :].transpose(-1, -2), terms)
+    return dq, dk, dv
+
+
+F32_BACKWARD_CASES = {  # name: (batch, heads, queries, keys, left pads of the keys per row, causal)
+    # row 1: 70 pad keys (a pad-only key block at every width) and its first
+    # 20 queries see no key (lse = -inf); 100 queries: a ragged tile
+    "padded_causal_ragged": (2, 1, 100, 150, [0, 70], True),
+    "full_all_pad_row": (3, 1, 70, 150, [0, 150, 90], False),  # row 1: every key padding
+}
+
+
+def _f32_backward_case(d, case, seed=0):
+    b, h, nq, nk, pads, causal = F32_BACKWARD_CASES[case]
+    rs = np.random.RandomState(d + nk + seed)
+    q = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32) * d**-0.5)
+    k, v = (torch.from_numpy(rs.randn(b, h, nk, d).astype(np.float32)) for _ in range(2))
+    do = torch.from_numpy(rs.randn(b, h, nq, d).astype(np.float32))
+    pad = torch.arange(nk)[None, :] < torch.tensor(pads)[:, None]
+    return q, k, v, pad, causal, do
+
+
+def _f32_backward_errors(q, k, v, pad, causal, do, **emulation):
+    """Max |x - x64| of the emulated kernel's dq, dk and dv and of the plain
+    float32 backward's, against the plain backward in float64 (each from
+    its own forward's o and lse)."""
+    o64, lse64 = fl._forward_plain(q.double(), k.double(), v.double(), pad, causal)
+    want = fl._backward_plain(q.double(), k.double(), v.double(), pad, causal, o64, lse64, do.double())
+    o, lse = fl._forward_plain(q, k, v, pad, causal)
+    plain = fl._backward_plain(q, k, v, pad, causal, o, lse, do)
+    got = _f32_backward_arithmetic(q, k, v, pad, causal, o, lse, do, **emulation)
+    errs = {name: ((x.double() - w).abs().max().item(), (y.double() - w).abs().max().item())
+            for name, x, y, w in zip(("dq", "dk", "dv"), got, plain, want)}
+    return errs, got, lse
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("case", sorted(F32_BACKWARD_CASES))
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 512])
+def test_f32_backward_emulation_is_float32_class(d, case):
+    """csrc/flash_backward_f32.cu's arithmetic (three TF32 products in the
+    model of truncating tensor-core sums, its key blocks, query tiles,
+    chains and fresh accumulators read from the source, its query range in 2
+    splits) against the float64 plain backward, at a padded causal ragged
+    shape (rows that see no key, a pad-only key block) and at a full mask with
+    a batch row whose keys are all padding: dq, dk and dv each within
+    F32_CLASS_FACTOR x the plain float32 version's error; pad keys' dk and dv
+    exact zeros; rows with lse = -inf zero dq."""
+    q, k, v, pad, causal, do = _f32_backward_case(d, case)
+    errs, got, lse = _f32_backward_errors(q, k, v, pad, causal, do, splits=2)
+    for name, (err, plain) in errs.items():
+        assert err <= F32_CLASS_FACTOR * plain, (name, err / plain)
+    at = pad[:, None, :, None].expand_as(got[1])
+    assert (got[1][at] == 0).all() and (got[2][at] == 0).all()
+    blind = torch.isneginf(lse)
+    assert blind.any() and (got[0][blind] == 0).all()
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("d", [64, 512])
+def test_f32_backward_one_tf32_term_is_not_float32_class(d):
+    """The negative control: the same arithmetic with one TF32 product (hi
+    hi) in place of three is more than F32_CLASS_FACTOR x the plain float32
+    version's error from float64 in dq, dk and dv."""
+    errs, _, _ = _f32_backward_errors(*_f32_backward_case(d, "padded_causal_ragged"), terms=1)
+    for name, (err, plain) in errs.items():
+        assert err > F32_CLASS_FACTOR * plain, (name, err / plain)
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+def test_f32_backward_truncating_sums_need_fresh_accumulators():
+    """Why dV^T and dK^T start a fresh accumulator every kChainQueries
+    queries: over 2,048 queries (one key block of 32 keys, D 64, full mask)
+    the design stays within F32_CLASS_FACTOR x the plain float32 version's
+    error from float64 in dk and dv, and one chain of truncating sums over
+    every query is past it."""
+    rs = np.random.RandomState(2048)
+    nq, nk, d = 2048, 32, 64
+    q = torch.from_numpy(rs.randn(1, 1, nq, d).astype(np.float32) * d**-0.5)
+    k, v, do = (torch.from_numpy(rs.randn(1, 1, n, d).astype(np.float32)) for n in (nk, nk, nq))
+    fresh, _, _ = _f32_backward_errors(q, k, v, None, False, do)
+    chain, _, _ = _f32_backward_errors(q, k, v, None, False, do, chain=nq)
+    assert _f32_backward_design(d)["chain"] < nq
+    for name in ("dk", "dv"):
+        assert fresh[name][0] <= F32_CLASS_FACTOR * fresh[name][1], (name, fresh[name])
+        assert chain[name][0] > F32_CLASS_FACTOR * chain[name][1], (name, chain[name])
+
+
+@pytest.mark.usefixtures("two_torch_threads")
+@pytest.mark.parametrize("d", [64, 512])
+def test_f32_backward_emulation_matches_interpreted_splash(d):
+    """The float32 backward's emulated arithmetic against ``jax.grad``
+    through JAX's splash in interpret mode on the same inputs (numpy, seeded),
+    causal with padding keys, 128 queries over 256 keys: dq, dk and dv within
+    the file's atol 2e-5; pad keys' gradients exact zeros."""
+    rs = np.random.RandomState(d + 7)
+    q, k, v = (rs.randn(2, 1, n, d).astype(np.float32) * s for n, s in ((128, d**-0.5), (256, 1.0), (256, 1.0)))
+    do = rs.randn(2, 1, 128, d).astype(np.float32) * d**-0.5
+    pad = np.arange(256)[None, :] < np.array([0, 45])[:, None]
+
+    def loss(q, k, v):
+        return jnp.sum(jax_splash_mha(q, k, v, pad_mask=jnp.asarray(pad), causal=True, interpret=True)
+                       * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    o, lse = fl._forward_plain(t[0], t[1], t[2], torch.from_numpy(pad), True)
+    got = _f32_backward_arithmetic(t[0], t[1], t[2], torch.from_numpy(pad), True, o, lse, t[3])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, err_msg=name)
+    at = torch.from_numpy(pad)[:, None, :, None].expand_as(got[1])
+    assert not got[1][at].any() and not got[2][at].any()
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 448, 512])
+def test_f32_backward_design_fits_the_card(d):
+    """Each width of csrc/flash_backward_f32.cu, read from the source: both
+    passes' shared memory (dK/dV: P^T and dS^T as hi and lo terms, its ring of
+    16 KB slots; dQ: its ring of 8 KB slots; the mbarriers and 1 KB of
+    alignment slack) fits the 232,448 bytes a block may have and equals the
+    header's table, as do the key block, the slots and consumer 0's
+    accumulators at its peak (dV^T's m-tiles, S or dP, a box's own) and its
+    register sets of A fragments; those leave at least 32 of the consumers'
+    setmaxnreg registers, the dQ pass's (its part of D's columns, 32 a box
+    for two consumers' rows: half a register a column; a box's own
+    accumulator; dS's four slices as hi and lo) at least 24, the parts cover
+    D in whole boxes, and the warpgroups' registers fit the SM's
+    65,536; a ring slot holds a Q box of the query tile and a K box of the key
+    block as hi and lo, the query tile is two consumers' 64 rows, its chains
+    whole k = 8 slices that divide it, and the wgmma N (the key block, 32 in
+    dQ) a multiple of 8 up to 256."""
+    design = _f32_backward_design(d)
+    bk = design["key_block"]
+    assert design["smem"] <= SMEM_PER_BLOCK and design["dq_smem"] <= SMEM_PER_BLOCK
+    row = re.search(rf"//   D {d}: (\d+)-key blocks, (\d+) slots, ([\d,]+) bytes, (\d+) \+ (\d+) \+ (\d+) "
+                    rf"accumulators, (\d) A sets?; dQ (\d+) slots, ([\d,]+) bytes", F32_BACKWARD_SOURCE.read_text())
+    n = [int(x.replace(",", "")) for x in row.groups()]
+    running, s = d * bk // 128, bk // 2
+    assert n == [bk, design["stages"], design["smem"], running, s, s, design["a_sets"], design["dq_stages"],
+                 design["dq_smem"]]
+    assert running + 2 * s + 8 * design["a_sets"] + 32 <= design["consumer_regs"]
+    columns = d // design["dq_parts"]
+    assert columns % 32 == 0 and columns // 2 + 16 + 32 + 24 <= design["consumer_regs"]
+    assert 128 * design["producer_regs"] + 256 * design["consumer_regs"] <= 65_536
+    assert design["slot"] >= max(design["q_tile"], 2 * bk) * 128 and design["dq_slot"] >= design["dq_rows"] * 128
+    assert design["q_tile"] == 2 * 64 and design["q_tile"] % design["chain"] == 0 and design["chain"] % 8 == 0
+    assert 4 % design["score_slices"] == 0 and bk % 8 == 0 and bk <= 256 and design["dq_keys"] == 32
+
+
+def test_f32_backward_splits_and_scratch():
+    """The float32 dK/dV pass's query splits: the flow decoder's patch (64
+    key blocks of 32 keys) gets 9 on 132 SMs, the flagship's 160 heads of 16
+    key blocks none, a short query range never below 4 tiles a split; the
+    wrapper's query tile and key blocks are the source's; the scratch holds
+    K and V as two terms and K^T as two terms over Nk rounded up to 8, and
+    the dS scratch's rows are Nk rounded up to 4."""
+    for d in range(64, fl.MAX_HEAD_DIM + 1, 64):
+        design = _f32_backward_design(d)
+        assert fl._F32_QUERY_TILE == design["q_tile"]
+        blocks = -(-2048 // design["key_block"])
+        assert fl.f32_backward_splits(1, 10**6, 2048, d, 132) == -(-fl._F32_WAVES * 132 // blocks)
+    assert fl.f32_backward_splits(1, 182_528, 2048, 512, 132) == 9
+    assert fl.f32_backward_splits(160, 512, 1024, 128, 132) == 1
+    assert fl.f32_backward_splits(4, 1024, 768, 192, 132) == 2
+    assert fl.f32_backward_scratch_floats(3, 150, 64) == 2 * 3 * 64 * (2 * 150 + 152)
+    assert fl._f32_ds_keys(150) == 152 and fl._f32_ds_keys(2048) == 2048
