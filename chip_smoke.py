@@ -3,7 +3,9 @@ kernels, hold each against its plain PyTorch version, drive Perceiver AR
 generation, the serving engine (with its request journal and crash
 recovery, and bf16 or int8 weights), the serving router over two engine
 replicas (failover, breakers, shedding, recovery), in process and in worker
-processes (a killed, a hung and a device-faulted worker) and training at the 455M
+processes (a killed, a hung and a device-faulted worker), the router's fleet
+operations (migration, rolling restart, deploy and rollback, autoscaling)
+and training at the 455M
 flagship's full width, train the 30M recipe through the fit loop, train
 clm_8k sequence-parallel (ring attention over a {"seq": 4} mesh of the one
 card), run Perceiver IO optical-flow inference (the 41M model on a
@@ -135,7 +137,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     and paged_chunked_prefix: page 128, chunks of 256, the
                     prefix cache, 2 prompts in flight, over chat_stream (32
                     requests on four shared 256-token system prefixes,
-                    768-896 tokens in all), REPEATS runs each: decode
+                    768-896 tokens in all), SERVING_REPEATS runs each: decode
                     tokens/s, ms per tick, TTFT and peak pages, ticks, graph
                     replays and captures, and for the chunked mode prefix
                     hits, shared pages in use and chunks (both > 0); each
@@ -143,8 +145,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     engine, whose every replay launches B2 once per layer
                     plus one cross-attention kernel (B2, B3 or B4); greedy
                     tokens identical across repeats and to an eager engine
-                    (cuda_graph=False) over the same stream, whose first
-                    decoding tick's logits lie within 0.03 x their RMS
+                    (cuda_graph=False) over the stream's first 16 requests,
+                    whose first decoding tick's logits lie within 0.03 x
+                    their RMS
      serving_lifecycle  the same model and stream in dense, paged_fp and
                     paged_int4, paged pools cut to 41 pages (five full
                     windows): requests 0-23 at class 0 at once, 24-31 at
@@ -224,8 +227,32 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     the CUDA error comes back, failover, worker 1 exits and
                     is respawned through its journal at tick 44 while worker
                     0 serves on, the same tokens, every process still
-                    launches kernels. Each worker's B2/B3 launches equal its
+                    launches kernels; (e) a rolling restart of (b)'s fleet
+                    after tick 40 over the stream's first 16 requests: each
+                    worker replaced by a fresh one through its journal, the
+                    rebuild tick's s and each new worker's startup by part,
+                    no failover, no breaker transition, the same tokens.
+                    Each worker's B2/B3 launches equal its
                     replays times a replay's, and count in the kernels line
+     serving_router_fleet  the fleet operations, the same model and stream
+                    through two in-process replicas of 8 slots: (a) paged_fp,
+                    after tick 40 every live session of replica 0 migrated
+                    to replica 1 and every other one back: the same tokens,
+                    no failover, a migrate event a move; (b) paged_fp,
+                    journaled: a rolling restart after tick 40 while half the
+                    stream arrives a request a tick: the rebuild ticks' ms,
+                    sessions moved and lost (0), the inter-token gaps over
+                    the restart against those before it; (c) paged_fp:
+                    version 1 (the flagship from seed 1) deployed at
+                    fraction 0.5 after tick 40, half the stream after it:
+                    each request's tokens are the single engine's of its
+                    pinned version (version 0's replica keeps its weights),
+                    then rollback, then a full rollout promoted to the
+                    primary; the flips by tick and the memory allocated
+                    with one and two versions live; (d) paged_int4 from one
+                    replica (at most two): a burst scales up, the idle tail
+                    down, none lost, B4 launched. Every run: one capture for
+                    each engine built, exact B2-B4 launches
      weight_serving  the flagship with float32 parameters and bf16 compute
                     in paged_fp with the prefix cache, weights as stored, in
                     bf16 and in int8: served and float bytes equal to their
@@ -321,7 +348,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     every encoder parameter bit-identical after them, the
                     decoder's changed; B1 never launches (attention
                     dropout keeps every call off the gate)
- 10. digits_convergence  run_digits("glyphs") at 3,000 steps through
+ 10. digits_convergence  run_digits("glyphs") at DIGITS_STEPS (1,500) steps through
                     Trainer.fit: met (best val_acc >= 0.98), wall s, the
                     linear-probe baseline or null with its reason
 Each main path runs with every launch counter set to 0 just before it and
@@ -385,7 +412,9 @@ F32_FLOP_PER_S = 495e12 / 3
 F32_CUDA_CORE_FLOP_PER_S = 67e12
 SEED = 0
 DEVICE = "cuda"
-REPEATS = 3  # generate() calls per main-path run, and engine runs per pool mode; medians and spreads are printed
+REPEATS = 3  # generate() calls per main-path run, windows of a train phase; medians and spreads are printed
+SERVING_REPEATS = 2  # engine runs per pool mode in serving() (two, not REPEATS: the card's time limit)
+GRAPH_VS_EAGER_REQUESTS = 16  # serving()'s eager engine takes the stream's first half: two waves of 8 slots
 # Kernel vs plain: float32 within an absolute 1e-4. In bfloat16 both sides sum
 # in float32 and round the output to bfloat16 apart, so they may differ by one
 # bfloat16 step (up to 2**-7 of a value); the limit is that fraction of the
@@ -1696,7 +1725,7 @@ def serving():
         stream = chat_stream(cfg) if mode == "paged_chunked_prefix" else request_stream(cfg)
         serve(model, mode, stream[:3])  # warm-up: cuBLAS handles, the kernel libraries, the allocator
         runs, greedy = [], []
-        for _ in range(REPEATS):
+        for _ in range(SERVING_REPEATS):
             engine, handles, counts = serve(model, mode, stream)
             snap = engine.metrics.snapshot()
             ticks = snap["decode_steps"]
@@ -1725,11 +1754,14 @@ def serving():
                              peak_shared_pages_in_use=None if cache is None else cache["peak_shared_pages_in_use"],
                              chunks=None if chunks is None else chunks["chunks_dispatched"]))
         identical = all(g == greedy[0] for g in greedy)
-        (first_err, first_limit), (graph_greedy, eager_greedy), tick_ms = graph_vs_eager(model, mode, stream)
-        emit(phase="serving", mode=mode, options=options, slots=8, requests=len(stream), repeats=REPEATS,
+        (first_err, first_limit), (graph_greedy, eager_greedy), tick_ms = graph_vs_eager(
+            model, mode, stream[:GRAPH_VS_EAGER_REQUESTS])
+        # the prefix's greedy requests come first among the full run's
+        graph_same = graph_greedy == eager_greedy == greedy[0][:len(graph_greedy)]
+        emit(phase="serving", mode=mode, options=options, slots=8, requests=len(stream), repeats=SERVING_REPEATS,
              launches_per_run=counts, launches_per_tick={k: v / runs[-1]["ticks"] for k, v in counts.items()},
              greedy_tokens_identical_across_repeats=identical,
-             graph_vs_eager={"greedy_tokens_identical": graph_greedy == eager_greedy == greedy[0],
+             graph_vs_eager={"requests": GRAPH_VS_EAGER_REQUESTS, "greedy_tokens_identical": graph_same,
                              "first_tick_max_logit_err": first_err, "limit": first_limit,
                              "ms_per_tick_in_turns": {"graph": tick_ms[0], "eager": tick_ms[1]}},
              **{k: spread([r[k] for r in runs]) if runs[0][k] is not None else None
@@ -1739,10 +1771,9 @@ def serving():
              tokens=runs[-1]["tokens"])
         if not identical:
             raise AssertionError(f"serving {mode}: greedy tokens differ between repeats")
-        if not graph_greedy == eager_greedy == greedy[0] or not first_err <= first_limit:
+        if not graph_same or not first_err <= first_limit:
             raise AssertionError(f"serving {mode}: the graph and eager engines disagree: greedy tokens identical "
-                                 f"{graph_greedy == eager_greedy == greedy[0]}, first decoding tick's logits "
-                                 f"{first_err} (limit {first_limit})")
+                                 f"{graph_same}, first decoding tick's logits {first_err} (limit {first_limit})")
         if mode == "paged_chunked_prefix" and not all(r["prefix_hits"] > 0 and r["chunks"] > 0 for r in runs):
             raise AssertionError(f"serving {mode}: no prefix hit or no chunk: {runs}")
     del model
@@ -1986,8 +2017,8 @@ def _run_stats(snap):
 
 
 def serving_journal():
-    """The flagship in bf16, 8 slots, request_stream in dense, paged_fp and
-    paged_int4, in turns: no journal, the metrics' JSONL stream alone, the
+    """The flagship in bf16, 8 slots, request_stream in JOURNAL_MODES, in
+    turns: no journal, the metrics' JSONL stream alone, the
     journal (fsync "accept") with the stream, and no journal again: the
     same tokens, the stream's submits equal to its terminal events and to
     finished + rejected + timed out + failed, and its last snapshot equal
@@ -2468,6 +2499,7 @@ def serving_router_recovery(model, stream, reference):
 
 
 PROCESS_MODE = "paged_fp"
+FLEET_PROCESS_REQUESTS = 16  # the worker fleet's rolling restart serves the stream's first half
 # the process replicas' transport: a hung worker's RPC gives up after two
 # attempts of 2.5 s, far above a healthy tick's RPC (285 ms at most on an
 # H100); a worker's init (its interpreter, CUDA context, the model's build
@@ -2543,8 +2575,13 @@ def serving_router_process(model, stream, reference, in_process):
     back, the breaker opens, the requests fail over, worker 1 exits and is
     respawned through its journal at half-open, worker 0 serves on, every
     request's tokens are the same, and both workers and this process still
-    launch kernels. Each worker's B2-B4 launches equal its replays times a
-    replay's. Returns the launches summed over the workers."""
+    launch kernels. (e) after (b), on its journaled fleet: the stream's
+    first FLEET_PROCESS_REQUESTS requests with a rolling restart begun after
+    FLEET_TICK of them: each worker replaced by a fresh one through its
+    journal (the rebuild tick's seconds, each new worker's startup by
+    part), no failover, no breaker transition, the same tokens. Each
+    worker's B2-B4 launches equal its replays times a replay's. Returns the
+    launches summed over the workers."""
     layers = model.config.num_self_attention_layers
     totals = {"B2": 0, "B3": 0, "B4": 0}
 
@@ -2653,7 +2690,6 @@ def serving_router_process(model, stream, reference, in_process):
         snap = router.snapshot()
         respawned = router.replicas[1].engine.pid not in (None, pid)
         startup = router.replicas[1].engine.startup
-        router.close()
         respawn = [e for e in load_metrics_jsonl(path)["events"] if e["event"] == "respawn"]
         identical = same_tokens(handles)
         t = snap["transport"]
@@ -2670,7 +2706,42 @@ def serving_router_process(model, stream, reference, in_process):
             raise AssertionError(f"serving_router_process kill: tokens identical {identical}, respawned "
                                  f"{respawned}, events {respawn}, failovers {snap['failovers']}, breaker "
                                  f"{snap['breaker_transitions']}, transport {t}")
-        del router, handles
+
+        # (e) a rolling restart of the same journaled fleet
+        handles = [router.submit(p, config=c, seed=seed) for p, c, seed in stream[:FLEET_PROCESS_REQUESTS]]
+        watch = FleetWatch(router, handles, engines=False)
+        pids = [r.engine.pid for r in router.replicas]
+        start = router._tick
+        t0 = time.perf_counter()
+        while watch.step():
+            if router._tick == start + FLEET_TICK:
+                assert router.begin_rolling_restart()
+        wall = time.perf_counter() - t0
+        totals_e = _worker_counts("serving_router_process rolling restart", router, layers)
+        counts_e = {k: totals_e[k] - counts[k] for k in totals_e}
+        add(counts_e)
+        snap_e = router.snapshot()
+        router.close()
+        recycles = [{k: v for k, v in e.items() if k != "ts"} for e in load_metrics_jsonl(path)["events"]
+                    if e["event"] == "recycle"]
+        rebuilt = [r.engine.pid not in pids for r in router.replicas]
+        identical_e = ([h.result().tolist() for h in handles] == reference[:FLEET_PROCESS_REQUESTS]
+                       and all(h.ok for h in handles))
+        t = snap_e["transport"]
+        emit(phase="serving_router_process", run="rolling_restart", mode=PROCESS_MODE, fleet="the kill run's",
+             requests=len(handles), begun_after_tick=FLEET_TICK, recycle_events=recycles,
+             rebuild_tick_s=[watch.tick_s[e["tick"]] for e in recycles],
+             steady_tick_ms=1e3 * statistics.median(watch.tick_s[start + k] for k in range(2, FLEET_TICK + 1)),
+             rebuild_startup=[r.engine.startup for r in router.replicas], workers_rebuilt=rebuilt,
+             sessions_lost=sum(not h.ok for h in handles), failovers=snap_e["failovers"] - snap["failovers"],
+             breaker_transitions=snap_e["breaker_transitions"], workers_alive=t["workers_alive"], wall_s=wall,
+             tokens_identical=identical_e, launches=counts_e)
+        if not (identical_e and all(rebuilt) and len(recycles) == ROUTER_REPLICAS and t["workers_alive"] == 2
+                and snap_e["failovers"] == snap["failovers"] and snap_e["breaker_transitions"] == {}):
+            raise AssertionError(f"serving_router_process rolling restart: tokens identical {identical_e}, rebuilt "
+                                 f"{rebuilt}, recycles {recycles}, transport {t}, breaker "
+                                 f"{snap_e['breaker_transitions']}")
+        del router, handles, watch
 
         # (d) a device-side assert in worker 1, journaled
         path = os.path.join(tmp, "device.jsonl")
@@ -2742,6 +2813,376 @@ def serving_router_process_alone():
         raise AssertionError("serving_router_process_alone: the in-process router's tokens are not the engine's")
     del router, handles
     return serving_router_process(model, stream, reference, dict(single_engine=single, router_in_process=fleet))
+
+
+FLEET_MODE = "paged_fp"
+FLEET_AUTOSCALE_MODE = "paged_int4"
+FLEET_TICK = ROUTER_EVENT_TICK  # the fleet operation starts after this router tick
+# the autoscale run: a burst of FLEET_BURST requests, then one a tick
+FLEET_BURST = 20
+FLEET_AUTOSCALE = dict(min_replicas=1, max_replicas=2, scale_up_load=8, scale_down_load=0, every_ticks=4, patience=2)
+
+
+def _engine_stats(engine):
+    return dict(captures=engine.decode_compilations, total=engine.total_compilations, replays=engine.graph_replays,
+                ticks=engine.metrics.decode_steps)
+
+
+class FleetWatch:
+    """``router.step()`` with bookkeeping: each router tick's seconds, each
+    request's token arrivals (router tick, time, tokens so far), the
+    replicas' versions by tick, and the last counters of every engine the
+    router replaced (a replaced engine was not ticked after the tick that
+    last showed it)."""
+
+    def __init__(self, router, handles, engines=True):
+        self.router, self.handles = router, handles
+        # in-process engines' counters (a worker's come from _worker_counts)
+        self.track = engines
+        self.engines = {r.rid: r.engine for r in router.replicas}
+        self.initial = len(self.engines)  # built before the counters were zeroed
+        self.replaced = []
+        self.tick_s = {}
+        self.arrivals = {}
+        self.versions = []
+
+    def step(self):
+        t0 = time.perf_counter()
+        work = self.router.step()
+        now = time.perf_counter()
+        tick = self.router._tick
+        self.tick_s[tick] = now - t0
+        for r in self.router.replicas:
+            old = self.engines.get(r.rid)
+            if old is not r.engine:
+                if old is not None and self.track:
+                    self.replaced.append(_engine_stats(old))
+                self.engines[r.rid] = r.engine
+        for h in self.handles:
+            arrived = self.arrivals.setdefault(h.request_id, [])
+            n = len(h.output_ids)
+            if n and (not arrived or n > arrived[-1][2]):
+                arrived.append((tick, now, n))
+        self.versions.append((tick, [r.version for r in self.router.replicas]))
+        return work
+
+    def drain(self):
+        while self.step():
+            pass
+
+    def engine_stats(self):
+        return self.replaced + [_engine_stats(e) for e in self.engines.values()]
+
+    def flips(self):
+        """(router tick, replica, old version, new version) of each flip."""
+        out, last = [], None
+        for tick, versions in self.versions:
+            if last is not None:
+                out += [(tick, i, a, b) for i, (a, b) in enumerate(zip(last, versions)) if a != b]
+            last = versions
+        return out
+
+    def gaps_ms(self, lo=None, hi=None):
+        """ms between successive tokens of a request: the gaps that overlap
+        router ticks [lo, hi], or (hi None) those that end before ``lo``."""
+        out = []
+        for arrived in self.arrivals.values():
+            for (t0, s0, _), (t1, s1, _) in zip(arrived, arrived[1:]):
+                if (t1 < lo if hi is None else t1 >= lo and t0 <= hi):
+                    out.append(1e3 * (s1 - s0))
+        return out
+
+
+def _gap_stats(gaps):
+    if not gaps:
+        return dict(n=0)
+    return dict(n=len(gaps), p50=float(np.percentile(gaps, 50)), p95=float(np.percentile(gaps, 95)), max=max(gaps))
+
+
+def _check_fleet_captures_and_launches(label, watch, counts, ca_kernel, layers):
+    """One capture for each engine the run built, a replay a decode tick, and
+    the kernels' counts equal to the decode passes times the launches a pass
+    makes: every engine's replays, and the eager warm-up step before the
+    capture of each engine built during the run (a rebuild, a flip, a
+    scale-up)."""
+    engines = watch.engine_stats()
+    bad = [e for e in engines if e["captures"] != 1 or e["total"] != 1 or e["replays"] != e["ticks"]]
+    if bad:
+        raise AssertionError(f"{label}: engines with other than one capture or a replay a tick: {bad}")
+    passes = sum(e["replays"] for e in engines) + len(engines) - watch.initial
+    expected = {"B2": passes * (layers + (ca_kernel is dk)), "B3": passes * (ca_kernel is pk),
+                "B4": passes * (ca_kernel is rk)}
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, expected {expected} for {passes} decode passes "
+                             f"({len(engines) - watch.initial} of them warm-ups)")
+
+
+def _zero_counts():
+    torch.cuda.synchronize()
+    dk.launches = pk.launches = rk.launches = 0
+
+
+def _read_counts():
+    torch.cuda.synchronize()
+    return {"B2": dk.launches, "B3": pk.launches, "B4": rk.launches}
+
+
+def serving_router_fleet(model, stream, references):
+    """The fleet operations on the flagship in bf16 over request_stream,
+    ROUTER_REPLICAS in-process replicas of 8 slots. (a) paged_fp: after
+    FLEET_TICK every live session of replica 0 migrates to replica 1, then
+    every other one back: no failover, a ``migrate`` event a move. (b)
+    paged_fp, journaled: half the stream, a rolling restart after FLEET_TICK
+    while the other half arrives one request a tick; each replica's rebuild
+    tick (a fresh engine through its journal: its build and capture), the
+    sessions moved, none lost, and the inter-token gaps that overlap the
+    restart against those before it. (c) paged_fp: half the stream, then
+    version 1 (the flagship from seed SEED + 1) deployed at fraction 0.5
+    after FLEET_TICK and the other half submitted: each request's tokens are
+    the single engine's of its pinned version (the requests pinned to
+    version 0 decode on a replica whose weights the flip left alone);
+    rollback, four requests on version 0; a full rollout of the same
+    weights (version 2), promoted, four requests on it; the flips by tick
+    and the memory allocated with one and two versions live. (d)
+    paged_int4 from one replica (FLEET_AUTOSCALE, at most two): a burst of
+    FLEET_BURST requests and the rest one a tick scale the fleet up, the
+    idle tail back down, none lost. Every run: tokens equal the single
+    engine's (``references``, greedy and sampled), one capture for each
+    engine built, B2/B3/B4 launches equal the engines' replays times a
+    replay's. Returns the launch counts."""
+    layers = model.config.num_self_attention_layers
+    totals = {"B2": 0, "B3": 0, "B4": 0}
+    reference = references[FLEET_MODE]
+    ca_kernel = SERVING_MODES[FLEET_MODE][1]
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    def router_of(mode, **options):
+        return ServingRouter(model, num_replicas=ROUTER_REPLICAS, num_slots=8, **SERVING_MODES[mode][0], **options)
+
+    def submit(router, handles, indices):
+        for i in indices:
+            p, c, seed = stream[i]
+            handles.append(router.submit(p, config=c, seed=seed))
+            order.append(i)
+
+    def events(path, kinds):
+        return [{k: v for k, v in e.items() if k != "ts"} for e in load_metrics_jsonl(path)["events"]
+                if e["event"] in kinds]
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) migration
+        path = os.path.join(tmp, "migrate.jsonl")
+        router = router_of(FLEET_MODE, metrics_jsonl=path)
+        _zero_counts()
+        order, handles = [], []
+        submit(router, handles, range(len(stream)))
+        watch = FleetWatch(router, handles)
+        moves = None
+        t0 = time.perf_counter()
+        while watch.step():
+            if router._tick == FLEET_TICK:
+                on0 = [h for h in handles if h.replica == 0 and not h.done]
+                landed1 = [router.migrate(h.request_id, 1) for h in on0]
+                landed0 = [router.migrate(h.request_id, 0) for h in on0[::2]]
+                moves = dict(to_replica_1=len(on0), landed_on_1=sum(landed1), back_to_0=len(on0[::2]),
+                             landed_on_0=sum(landed0), emitted_at_move=[len(h.output_ids) for h in on0])
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        _check_fleet_captures_and_launches("serving_router_fleet migration", watch, counts, ca_kernel, layers)
+        add(counts)
+        snap = router.snapshot()
+        router.close()
+        migrate_events = events(path, {"migrate"})
+        identical = [h.result().tolist() for h in handles] == reference and all(h.ok for h in handles)
+        emit(phase="serving_router_fleet", run="migration", mode=FLEET_MODE, replicas=ROUTER_REPLICAS,
+             slots_per_replica=8, requests=len(stream), at_tick=FLEET_TICK, moves=moves,
+             migrate_events=len(migrate_events), migrations_in_snapshot=snap["fleet_ops"]["migrations"],
+             failovers=snap["failovers"], breaker_transitions=snap["breaker_transitions"], ticks=router._tick,
+             wall_s=wall, tokens_identical=identical, engines=watch.engine_stats(), launches=counts)
+        if not (identical and moves and moves["to_replica_1"] > 0 and moves["landed_on_1"] == moves["to_replica_1"]
+                and moves["landed_on_0"] == moves["back_to_0"] and snap["failovers"] == 0
+                and len(migrate_events) == moves["landed_on_1"] + moves["landed_on_0"]
+                == snap["fleet_ops"]["migrations"] and snap["breaker_transitions"] == {}):
+            raise AssertionError(f"serving_router_fleet migration: tokens identical {identical}, moves {moves}, "
+                                 f"events {len(migrate_events)}, snapshot {snap['fleet_ops']}, failovers "
+                                 f"{snap['failovers']}, breaker {snap['breaker_transitions']}")
+        del router, handles, watch
+
+        # (b) rolling restart under load, journaled
+        path = os.path.join(tmp, "restart.jsonl")
+        router = router_of(FLEET_MODE, metrics_jsonl=path, journal=os.path.join(tmp, "restart", "r{i}"))
+        _zero_counts()
+        order, handles = [], []
+        half = len(stream) // 2
+        submit(router, handles, range(half))
+        watch = FleetWatch(router, handles)
+        arriving = list(range(half, len(stream)))
+        restart_end = None
+        t0 = time.perf_counter()
+        while watch.step() or arriving:
+            if router._tick == FLEET_TICK:
+                assert router.begin_rolling_restart()
+            if router._tick >= FLEET_TICK and arriving:
+                submit(router, handles, [arriving.pop(0)])
+            if restart_end is None and router._tick > FLEET_TICK and not router.restart_in_progress:
+                restart_end = router._tick
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        _check_fleet_captures_and_launches("serving_router_fleet restart", watch, counts, ca_kernel, layers)
+        add(counts)
+        snap = router.snapshot()
+        router.close()
+        recycles = events(path, {"recycle"})
+        got = [h.result().tolist() for h in handles]
+        identical = got == [reference[i] for i in order] and all(h.ok for h in handles)
+        lost = sum(not h.ok for h in handles)
+        steady, during = watch.gaps_ms(FLEET_TICK + 1), watch.gaps_ms(FLEET_TICK + 1, restart_end)
+        emit(phase="serving_router_fleet", run="rolling_restart", mode=FLEET_MODE, journaled=True,
+             begun_after_tick=FLEET_TICK, restart_end_tick=restart_end, recycle_events=recycles,
+             rebuild_tick_ms=[1e3 * watch.tick_s[e["tick"]] for e in recycles],
+             steady_tick_ms=1e3 * statistics.median(watch.tick_s[t] for t in range(2, FLEET_TICK + 1)),
+             sessions_moved=sum(e["sessions_moved"] for e in recycles), sessions_lost=lost,
+             inter_token_gap_ms_steady=_gap_stats(steady), inter_token_gap_ms_during_restart=_gap_stats(during),
+             failovers=snap["failovers"], breaker_transitions=snap["breaker_transitions"], ticks=router._tick,
+             wall_s=wall, tokens_identical=identical, engines=watch.engine_stats(), launches=counts)
+        if not (identical and lost == 0 and len(recycles) == ROUTER_REPLICAS and snap["failovers"] == 0
+                and snap["breaker_transitions"] == {} and len(watch.engine_stats()) == 2 * ROUTER_REPLICAS):
+            raise AssertionError(f"serving_router_fleet restart: tokens identical {identical}, lost {lost}, "
+                                 f"recycles {recycles}, failovers {snap['failovers']}, breaker "
+                                 f"{snap['breaker_transitions']}, engines {watch.engine_stats()}")
+        del router, handles, watch
+
+        # (c) deploy, rollback, full rollout
+        _, v1_model = _serving_model(seed=SEED + 1)
+        _, v1_handles, _ = serve(v1_model, FLEET_MODE, stream)
+        reference_v1 = [h.result().tolist() for h in v1_handles]
+        state_v1 = {k: v.detach().cpu() for k, v in v1_model.state_dict().items()}
+        del v1_model, v1_handles
+        torch.cuda.empty_cache()
+        path = os.path.join(tmp, "deploy.jsonl")
+        router = router_of(FLEET_MODE, metrics_jsonl=path)
+        _zero_counts()
+        order, handles = [], []
+        submit(router, handles, range(half))
+        watch = FleetWatch(router, handles)
+        memory = {}
+        while True:
+            work = watch.step()
+            if router._tick == FLEET_TICK:
+                memory["one_version_bytes"] = torch.cuda.memory_allocated()
+                deployed = router.deploy(state_v1, fraction=0.5)
+                submit(router, handles, range(half, len(stream)))
+                work = True
+            if "two_versions_bytes" not in memory and 1 in [r.version for r in router.replicas]:
+                memory["two_versions_bytes"] = torch.cuda.memory_allocated()
+            if not work and router._tick > FLEET_TICK:
+                break
+        rolled_back = router.rollback()
+        for _ in range(2):
+            watch.step()  # the flipped replica flips back
+        submit(router, handles, range(4))
+        watch.drain()
+        promoted_version = router.deploy(state_v1, fraction=1.0)
+        for _ in range(2):
+            watch.step()  # both flip, then the full rollout becomes the primary
+        memory["after_full_rollout_bytes"] = torch.cuda.memory_allocated()
+        promoted = router._primary_version == promoted_version and router._rollout is None
+        submit(router, handles, range(4, 8))
+        watch.drain()
+        counts = _read_counts()
+        _check_fleet_captures_and_launches("serving_router_fleet deploy", watch, counts, ca_kernel, layers)
+        add(counts)
+        snap = router.snapshot()
+        router.close()
+        pins = [h.version for h in handles]
+        want = [(reference if v == 0 else reference_v1)[i] for i, v in zip(order, pins)]
+        identical = [h.result().tolist() for h in handles] == want and all(h.ok for h in handles)
+        by_version = {v: sum(p == v for p in pins) for v in sorted(set(pins))}
+        v0_left_alone = [h.result().tolist() for h, v in zip(handles, pins) if v == 0] == [
+            reference[i] for i, v in zip(order, pins) if v == 0]
+        emit(phase="serving_router_fleet", run="deploy_rollback", mode=FLEET_MODE, deployed_after_tick=FLEET_TICK,
+             fraction=0.5, version=deployed, pins=by_version, flips=watch.flips(),
+             flip_tick_ms=[1e3 * watch.tick_s[t] for t in sorted({f[0] for f in watch.flips()})],
+             steady_tick_ms=1e3 * statistics.median(watch.tick_s[t] for t in range(2, FLEET_TICK + 1)),
+             rolled_back=rolled_back,
+             full_rollout_version=promoted_version, promoted=promoted, memory=memory,
+             second_version_bytes=memory.get("two_versions_bytes", 0) - memory["one_version_bytes"],
+             events=events(path, {"deploy", "rollback"}), rollout=snap["fleet_ops"]["rollout"],
+             version_0_tokens_identical=v0_left_alone, tokens_identical=identical, engines=watch.engine_stats(),
+             launches=counts)
+        if not (identical and rolled_back and promoted and by_version.get(1) and by_version.get(0)
+                and by_version.get(promoted_version) == 4 and snap["failovers"] == 0
+                and snap["breaker_transitions"] == {}):
+            raise AssertionError(f"serving_router_fleet deploy: tokens identical {identical}, pins {by_version}, "
+                                 f"rolled back {rolled_back}, promoted {promoted}, flips {watch.flips()}")
+        del router, handles, watch, state_v1
+
+        # (d) autoscale, paged_int4
+        mode = FLEET_AUTOSCALE_MODE
+        path = os.path.join(tmp, "autoscale.jsonl")
+        router = ServingRouter(model, num_replicas=1, num_slots=8, metrics_jsonl=path, autoscale=FLEET_AUTOSCALE,
+                               **SERVING_MODES[mode][0])
+        _zero_counts()
+        order, handles = [], []
+        submit(router, handles, range(FLEET_BURST))
+        watch = FleetWatch(router, handles)
+        arriving = list(range(FLEET_BURST, len(stream)))
+        active = []
+        t0 = time.perf_counter()
+        while watch.step() or arriving:
+            if arriving:
+                submit(router, handles, [arriving.pop(0)])
+            active.append(sum(not r.retired and not r.recycling for r in router.replicas))
+        for _ in range(4 * FLEET_AUTOSCALE["every_ticks"] * FLEET_AUTOSCALE["patience"]):
+            if sum(not r.retired for r in router.replicas) == FLEET_AUTOSCALE["min_replicas"]:
+                break
+            watch.step()  # the idle tail
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        _check_fleet_captures_and_launches("serving_router_fleet autoscale", watch, counts, SERVING_MODES[mode][1],
+                                           layers)
+        add(counts)
+        snap = router.snapshot()
+        router.close()
+        scaled = events(path, {"autoscale"})
+        identical = ([h.result().tolist() for h in handles] == [references[mode][i] for i in order]
+                     and all(h.ok for h in handles))
+        fleet = snap["fleet_ops"]
+        emit(phase="serving_router_fleet", run="autoscale", mode=mode, knobs=FLEET_AUTOSCALE, burst=FLEET_BURST,
+             autoscale_events=scaled, peak_replicas=max(active), replicas_active=fleet["replicas_active"],
+             scale_ups=fleet["scale_ups"], scale_downs=fleet["scale_downs"],
+             sessions_lost=sum(not h.ok for h in handles),
+             ticks=router._tick, wall_s=wall, tokens_identical=identical, engines=watch.engine_stats(),
+             launches=counts)
+        if not (identical and max(active) == 2 and fleet["scale_ups"] >= 1 and fleet["scale_downs"] >= 1
+                and fleet["replicas_active"] == 1 and counts["B4"] > 0 and snap["failovers"] == 0):
+            raise AssertionError(f"serving_router_fleet autoscale: tokens identical {identical}, peak {max(active)}, "
+                                 f"fleet {fleet}, launches {counts}")
+        del router, handles, watch
+    torch.cuda.empty_cache()
+    emit(phase="serving_router_fleet", run="phase", seconds=time.perf_counter() - t_phase, launches=totals)
+    return totals
+
+
+def serving_router_fleet_alone():
+    """serving_router_fleet without the rest of the script: the flagship in
+    bf16 from SEED and the single engine's tokens in paged_fp and
+    paged_int4 computed here. Returns the launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, model = _serving_model()
+    stream = request_stream(cfg)
+    references = {}
+    for mode in (FLEET_MODE, FLEET_AUTOSCALE_MODE):
+        serve(model, mode, stream[:3])  # warm-up
+        _, handles, _ = serve(model, mode, stream)
+        references[mode] = [h.result().tolist() for h in handles]
+        del handles
+    return serving_router_fleet(model, stream, references)
 
 
 def served_bytes_from_shapes(model, weight_dtype):
@@ -3787,7 +4228,9 @@ CLASSIFIER_BATCH = 32  # images a forward
 CLASSIFIER_TRAIN_BATCH = 16
 CLASSIFIER_TRAIN_STEPS = 3
 CLASSIFIER_PARAMS = 48_440_627  # deepmind/vision-perceiver-fourier's count
-DIGITS_STEPS = 3000  # run_digits("glyphs")'s default
+# run_digits("glyphs") at half its 3,000-step default (the card's time limit);
+# the 0.98 bar is the same
+DIGITS_STEPS = 1500
 
 
 def classifier_images(n, seed):
@@ -4107,14 +4550,15 @@ def main() -> int:
     recovery_launches = serving_recovery(model, stream, reference)
     router_launches, references, router_stats = serving_router(model, stream)
     process_launches = serving_router_process(model, stream, references[PROCESS_MODE], router_stats)
+    fleet_launches = serving_router_fleet(model, stream, references)
     del model
     torch.cuda.empty_cache()
     weight_launches = weight_serving()
     for phase, counts in (("serving_journal", journal_launches), ("serving_recovery", recovery_launches),
                           ("serving_router", router_launches), ("serving_router_process", process_launches),
-                          ("weight_serving", weight_launches)):
-        if not counts["B2"] or not counts["B3"] or (phase in ("serving_journal", "serving_router")
-                                                    and not counts["B4"]):
+                          ("serving_router_fleet", fleet_launches), ("weight_serving", weight_launches)):
+        if not counts["B2"] or not counts["B3"] or (phase in ("serving_journal", "serving_router",
+                                                              "serving_router_fleet") and not counts["B4"]):
             raise AssertionError(f"a kernel of the {phase} path was never launched: {counts}")
         for k, v in counts.items():
             launches[k] += v

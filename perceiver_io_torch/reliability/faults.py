@@ -1,8 +1,9 @@
 """Deterministic fault injection: named points, armed on demand, inert by default.
 
 Port of the part of ``perceiver_io_tpu/reliability/faults.py`` that the
-serving engine, its request journal, the router and the process replicas'
-transport fire: ``FaultSpec``, ``FaultRegistry``, the process-wide
+serving engine, its request journal, the router (its fleet operations
+too) and the process replicas' transport fire: ``FaultSpec``,
+``FaultRegistry``, the process-wide
 ``FAULTS``, ``armed(...)``, environment arming, ``KilledMidWrite``,
 ``ReplicaCrashed`` and the serving, journal, replica and transport hooks.
 The points:
@@ -22,6 +23,11 @@ The points:
                         compaction or recovery swap; ``slot`` picks the
                         stage (0 = before the atomic rename, 1 = after it,
                         before the old generation is deleted)
+  ``router.migrate.kill``  raise ``KilledMidWrite`` inside a planned
+                        migration, after the destination's accept is
+                        durable and before the origin journal's close
+                        record: the one window where a session is live in
+                        two journals, which recovery dedupes to one
   ``replica.crash``     raise ``ReplicaCrashed`` at the top of a router
                         replica's tick (``slot`` selects the replica index,
                         None = every replica): a lost engine; exercises
@@ -78,15 +84,15 @@ from typing import Dict, Optional
 FAULT_ENV = "PERCEIVER_IO_TORCH_FAULT"
 
 POINTS = frozenset({"serving.nan", "serving.deadline", "serving.journal.torn_write",
-                    "serving.journal.corrupt_record", "serving.journal.compact.kill", "replica.crash",
-                    "replica.stall", "replica.slow_tick", "replica.crash.harvest", "transport.send.torn",
-                    "transport.recv.timeout", "transport.worker.kill", "transport.worker.hang",
-                    "transport.worker.device_fault"})
+                    "serving.journal.corrupt_record", "serving.journal.compact.kill", "router.migrate.kill",
+                    "replica.crash", "replica.stall", "replica.slow_tick", "replica.crash.harvest",
+                    "transport.send.torn", "transport.recv.timeout", "transport.worker.kill",
+                    "transport.worker.hang", "transport.worker.device_fault"})
 
 
 class KilledMidWrite(RuntimeError):
     """Injected kill in the middle of a durable write (a journal compaction's
-    generation swap)."""
+    generation swap, a migration between its two journal writes)."""
 
 
 class ReplicaCrashed(RuntimeError):
@@ -234,6 +240,16 @@ def fire_journal_compact_kill(stage: int) -> None:
     if spec is not None:
         raise KilledMidWrite(f"injected kill mid-journal-compaction (stage {stage}, firing "
                              f"{spec.fired}{'' if spec.times is None else f'/{spec.times}'})")
+
+
+def fire_migrate_kill() -> None:
+    """Planned-migration hook (``ServingRouter.migrate``), after the
+    destination journaled its accept and before the origin journal's close
+    record: raises ``KilledMidWrite`` when armed."""
+    spec = FAULTS.fire("router.migrate.kill")
+    if spec is not None:
+        raise KilledMidWrite(f"injected kill mid-migration (firing {spec.fired}"
+                             f"{'' if spec.times is None else f'/{spec.times}'})")
 
 
 def _crash(point: str, replica_id: int) -> None:

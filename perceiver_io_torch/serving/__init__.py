@@ -5,9 +5,10 @@ drain), its write-ahead request journal and crash recovery, weight serving
 pool, the radix prefix cache, the engine's and the router's metrics with
 their JSONL stream, the router over engine replicas, in process or one
 worker process each behind the CRC-framed RPC transport, with the
-supervisor that respawns a dead worker through its journal (port of
-``perceiver_io_tpu.serving``; the fleet operations come in a later
-slice)."""
+supervisor that respawns a dead worker through its journal, and the
+router's fleet operations: planned migration, the rolling restart,
+versioned deploy and rollback, and autoscaling (port of
+``perceiver_io_tpu.serving``)."""
 
 from perceiver_io_torch.serving.engine import (
     TERMINAL_STATUSES,

@@ -6,7 +6,8 @@ the JAX field and method names, and of its JSONL half: ``_JsonlMetrics``
 ``close``), ``EngineMetrics(jsonl_path=...)``, which writes the JAX
 package's event with its fields for each ``record_*`` (``submit``,
 ``admit``, ``chunk``, ``prefix_hit``, ``prefix_evict``, ``preempt``,
-``alloc_failure``, ``recovery``, ``decode_step``, ``finish``, ``reject``)
+``alloc_failure``, ``recovery``, ``quant_agreement``, ``decode_step``,
+``finish``, ``reject``)
 and ``write_snapshot`` a ``snapshot`` event, ``latency_estimates`` (the
 router's shedding input), ``RouterMetrics`` (the in-process router's
 events and snapshot), ``SCHEMA`` ("serving-metrics/v12"), ``KNOWN_SCHEMAS``
@@ -259,6 +260,10 @@ class EngineMetrics(_JsonlMetrics):
     kv_quant_mode: Optional[str] = None
     kv_bytes_per_token_fp: Optional[float] = None
     kv_bytes_per_token: Optional[float] = None
+    # greedy agreement of a quantized engine with a float reference, fed by
+    # a harness (record_quant_agreement)
+    agreement_tokens: int = 0
+    agreement_matched: int = 0
     alloc_failures: int = 0  # head-of-line blocking episodes on the free list
     # the journal's gauges (RequestJournal.stats()): None <=> no journal
     journal: Optional[Dict] = None
@@ -432,8 +437,16 @@ class EngineMetrics(_JsonlMetrics):
 
     def set_kv_quant(self, mode: str, bytes_per_token_fp: float, bytes_per_token: float) -> None:
         self.kv_quant_mode = mode
-        self.kv_bytes_per_token_fp = bytes_per_token_fp
-        self.kv_bytes_per_token = bytes_per_token
+        self.kv_bytes_per_token_fp = round(bytes_per_token_fp, 3)
+        self.kv_bytes_per_token = round(bytes_per_token, 3)
+
+    def record_quant_agreement(self, matched: int, total: int) -> None:
+        """One greedy-agreement sample: a harness decoded ``total`` tokens on
+        this quantized engine against a float reference and ``matched`` of
+        them agreed. The counts ride the snapshot's ``kv_quant`` section."""
+        self.agreement_matched += int(matched)
+        self.agreement_tokens += int(total)
+        self._emit("quant_agreement", matched=int(matched), total=int(total))
 
     def set_journal(self, stats: Dict) -> None:
         """The journal's gauges (``RequestJournal.stats()``), refreshed once
@@ -505,6 +518,10 @@ class EngineMetrics(_JsonlMetrics):
                 "mode": self.kv_quant_mode,
                 "bytes_per_token_fp": self.kv_bytes_per_token_fp,
                 "bytes_per_token": self.kv_bytes_per_token,
+                "agreement_tokens": self.agreement_tokens,
+                "agreement_matched": self.agreement_matched,
+                "agreement_rate": round(self.agreement_matched / self.agreement_tokens, 4)
+                if self.agreement_tokens else None,
             },
             "journal": None if self.journal is None else dict(self.journal),
             "weight_serving": None if self.weight_serving is None else dict(self.weight_serving),
@@ -548,12 +565,15 @@ class RouterMetrics(_JsonlMetrics):
     holds the router's events (``submit``, ``dispatch``, ``failover``,
     ``shed``, ``breaker``, ``finish``) and its ``snapshot``s; each engine
     writes its own stream (the router's ``replica_metrics_jsonl``
-    template). The snapshot reads as the JAX package's in-process router
-    writes it before any migration, recycle, deploy or autoscale:
-    ``fleet_ops`` holds zero gauges. ``transport`` is None in-process; a
-    process-replica fleet sets it (``set_transport``) with the lifetime
-    ``worker_respawns`` and ``rpc_retries`` in it, whose events
-    (``respawn``, ``rpc_retry``) join the stream."""
+    template). The fleet operations add their events (``migrate``,
+    ``recycle``, ``deploy``, ``rollback``, ``autoscale``) and the
+    snapshot's ``fleet_ops`` section: their counters, the gauges the router
+    sets (``set_fleet_gauges``) and, once a deploy has registered a second
+    parameter version, the ``rollout`` table with its ``versions`` rows
+    (submitted, finished, tokens by version). ``transport`` is None
+    in-process; a process-replica fleet sets it (``set_transport``) with
+    the lifetime ``worker_respawns`` and ``rpc_retries`` in it, whose
+    events (``respawn``, ``rpc_retry``) join the stream."""
 
     num_replicas: int
     jsonl_path: Optional[str] = None
@@ -566,6 +586,18 @@ class RouterMetrics(_JsonlMetrics):
     failovers: int = 0  # re-dispatches of a lost replica's live requests
     shed_infeasible: int = 0  # admission-time SLO sheds (a subset of rejected)
     breaker_transitions: Dict[str, int] = field(default_factory=dict)
+    # the fleet operations: planned migrations, rolling-restart recycles,
+    # the autoscaler's decisions, the gauges the router sets, and by
+    # version {"submitted", "finished", "tokens_generated"} (the rollout
+    # table, None until a deploy: rollout_state)
+    migrations: int = 0
+    recycles: int = 0
+    scale_ups: int = 0
+    scale_downs: int = 0
+    replicas_active: Optional[int] = None  # None until the router sets it
+    restart_in_progress: bool = False
+    versions: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    rollout_state: Optional[Dict] = None  # {rollout_version, fraction, primary_version}
     # process replicas: supervisor respawns and transport retries over the
     # router's life; the RPC gauges arrive with each snapshot (set_transport)
     worker_respawns: int = 0
@@ -582,8 +614,14 @@ class RouterMetrics(_JsonlMetrics):
         if self._start_time is None:
             self._start_time = time.perf_counter()
         self.requests_submitted += 1
-        extra = {} if version is None else {"version": version}
+        extra = {}
+        if version is not None:
+            self._version_row(version)["submitted"] += 1
+            extra["version"] = version
         self._emit("submit", request_id=request_id, prompt_len=prompt_len, priority=priority, **extra)
+
+    def _version_row(self, version: int) -> Dict[str, int]:
+        return self.versions.setdefault(str(version), {"submitted": 0, "finished": 0, "tokens_generated": 0})
 
     def record_dispatch(self, request_id: int, replica: int, load: int) -> None:
         """One hand-off a replica's engine accepted (a first dispatch or a
@@ -606,6 +644,57 @@ class RouterMetrics(_JsonlMetrics):
         key = f"{old}->{new}"
         self.breaker_transitions[key] = self.breaker_transitions.get(key, 0) + 1
         self._emit("breaker", replica=replica, transition=key, tick=tick)
+
+    def record_migration(self, request_id: int, src: int, dst: int, emitted_tokens: int) -> None:
+        """One planned migration: the session left ``src`` through the
+        engine's eviction and landed on ``dst`` as a forced replay of
+        ``emitted_tokens`` tokens (no replica lost, no failover spent;
+        ``src`` -1 for a parked session)."""
+        self.migrations += 1
+        self._emit("migrate", request_id=request_id, src=src, dst=dst, emitted_tokens=emitted_tokens)
+
+    def record_recycle(self, replica: int, sessions_moved: int, leftover_sessions: int, tick: int) -> None:
+        """One rolling-restart recycle: the replica's sessions moved to
+        siblings or parked (``sessions_moved``), its engine was rebuilt
+        (through its journal: ``leftover_sessions`` it adopted again) and
+        it serves again."""
+        self.recycles += 1
+        self._emit("recycle", replica=replica, sessions_moved=sessions_moved, leftover_sessions=leftover_sessions,
+                   tick=tick)
+
+    def record_deploy(self, version: int, fraction: float, target_replicas: List[int]) -> None:
+        """One deploy: ``version`` takes ``fraction`` of new admissions, and
+        ``target_replicas`` flip to it once empty."""
+        self.rollout_state = {"rollout_version": version, "fraction": round(float(fraction), 4)}
+        self._version_row(version)  # the table shows the version from the start
+        self._emit("deploy", version=version, fraction=round(float(fraction), 4),
+                   target_replicas=list(target_replicas))
+
+    def record_rollback(self, from_version: int, to_version: int) -> None:
+        """One rollback: new admissions pin ``to_version`` again; sessions
+        pinned to ``from_version`` finish on it."""
+        self._emit("rollback", from_version=from_version, to_version=to_version)
+
+    def record_autoscale(self, direction: str, replica: int, active: int, load: int, tick: int) -> None:
+        """One autoscaler decision, "up" (a replica revived or added) or
+        "down" (one retired by draining it), with the fleet load that
+        decided it."""
+        if direction == "up":
+            self.scale_ups += 1
+        else:
+            self.scale_downs += 1
+        self.replicas_active = active
+        self._emit("autoscale", direction=direction, replica=replica, active=active, load=load, tick=tick)
+
+    def set_fleet_gauges(self, replicas_active: int, restart_in_progress: bool,
+                         primary_version: Optional[int] = None) -> None:
+        """The replicas in service, whether a rolling restart runs, and the
+        primary version (shown in the rollout section once a deploy made
+        one)."""
+        self.replicas_active = replicas_active
+        self.restart_in_progress = restart_in_progress
+        if primary_version is not None and self.rollout_state is not None:
+            self.rollout_state["primary_version"] = primary_version
 
     def record_respawn(self, replica: int, sessions: int, tick: int) -> None:
         """One supervisor respawn: the replica's dead worker process was
@@ -631,7 +720,13 @@ class RouterMetrics(_JsonlMetrics):
         """A request's terminal router-level outcome; ``status`` routes the
         count as the engine's does."""
         self._route_status(status)
-        extra = {} if version is None else {"version": version}
+        extra = {}
+        if version is not None:
+            row = self._version_row(version)
+            if status == "finished":
+                row["finished"] += 1
+            row["tokens_generated"] += int(new_tokens)
+            extra["version"] = version
         self._emit("finish", request_id=request_id, status=status, reason=reason, new_tokens=new_tokens,
                    failovers=failovers, **extra)
 
@@ -667,10 +762,20 @@ class RouterMetrics(_JsonlMetrics):
             "kv_quant": None,
             "weight_serving": None,
             "ragged_tick": None,
-            # the fleet operations (migration, rolling restart, rollout,
-            # autoscaling) are a later slice: their gauges read zero
-            "fleet_ops": {"migrations": 0, "recycles": 0, "scale_ups": 0, "scale_downs": 0,
-                          "replicas_active": self.num_replicas, "restart_in_progress": False, "rollout": None},
+            # the router's own lifecycle; the rollout table once a deploy
+            # registered a second version (versions in numeric order)
+            "fleet_ops": {
+                "migrations": self.migrations,
+                "recycles": self.recycles,
+                "scale_ups": self.scale_ups,
+                "scale_downs": self.scale_downs,
+                "replicas_active": self.num_replicas if self.replicas_active is None else self.replicas_active,
+                "restart_in_progress": self.restart_in_progress,
+                "rollout": None if self.rollout_state is None else {
+                    **self.rollout_state,
+                    "versions": {v: dict(row) for v, row in sorted(self.versions.items(), key=lambda kv: int(kv[0]))},
+                },
+            },
             # None in-process (no RPC boundary); the lifetime respawn and
             # retry totals ride the block
             "transport": None if self.transport_state is None else {

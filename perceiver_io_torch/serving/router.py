@@ -1,13 +1,14 @@
 """Fault-tolerant serving over several engine replicas: a health-checked router.
 
-Port of ``perceiver_io_tpu/serving/router.py``'s core: ``RoutedRequest``,
-the breaker states and ``ServingRouter`` with load-based dispatch,
-per-replica health and a circuit breaker, failover by forced-token replay,
-NaN containment and the slow-tick detector, SLO shedding at admission, drain
+Port of ``perceiver_io_tpu/serving/router.py``: ``RoutedRequest``, the
+breaker states and ``ServingRouter`` with load-based dispatch, per-replica
+health and a circuit breaker, failover by forced-token replay, NaN
+containment and the slow-tick detector, SLO shedding at admission, drain
 and SIGTERM, per-replica journals with the router's own journal for parked
 submits, ``ServingRouter.recover``, ``RouterMetrics`` on the JSONL stream,
-and replicas in worker processes with the supervisor that respawns a dead
-worker through its journal.
+replicas in worker processes with the supervisor that respawns a dead
+worker through its journal, and the fleet operations: planned migration,
+the rolling restart, versioned deploy and rollback, and autoscaling.
 
   * Same surface as the engine. ``submit()`` returns a handle at once,
     ``step()`` runs one router tick, ``run_until_drained()`` and ``drain()``
@@ -16,7 +17,8 @@ worker through its journal.
   * In-process replicas. Each replica is a ``ServingEngine`` of the fleet's
     geometry over the one model the caller hands in, on the model's device:
     the replicas share its parameters (the card holds one copy, and under
-    ``weight_dtype`` they are transformed once), while each owns its caches,
+    ``weight_dtype`` they are transformed once; the replicas of a deployed
+    version share that version's model), while each owns its caches,
     its page pool, its decode graph (one capture each) and its journal. An
     in-process replica fails alone only for host-side faults: an exception
     out of its tick, a stall, non-finite logits. A sticky CUDA error (an
@@ -76,17 +78,52 @@ worker through its journal.
     accept is durable elsewhere or it ends while parked, so a process death
     anywhere recovers it exactly once (``ServingRouter.recover``).
 
-Not in this slice (ROADMAP A1.14, A2.5): planned migration, rolling
-restart, versioned rollout and autoscaling, and telemetry; their knobs raise
+Fleet operations (one tick of progress each ``step()``, decided by tick
+counts, never by a clock):
+
+  * Planned migration. ``migrate(request_id, dst)`` lifts a session off its
+    healthy replica through the engine's eviction and lands it on ``dst``
+    as its prompt plus emitted tokens, the failover's forced replay: the
+    same tokens, no failover spent, no new capture. The origin's journal
+    entry stays live until the destination's accept is durable, then closes
+    as ("moved", "migrated"); a death between the two leaves the session in
+    two journals, which ``recover`` dedupes by session id.
+  * Rolling restart. ``begin_rolling_restart()`` (``rolling_restart()``
+    steps it to the end) recycles every replica in index order, one at a
+    time, over two ticks: the first drains its sessions to siblings (or
+    parks them, durable in its journal), the second rebuilds its engine
+    through its journal at the version it served and serves again. A
+    replica that is recycling reads as OPEN everywhere: no dispatch, no
+    tick, no strike. In process mode the rebuild is a fresh worker.
+  * Versions. ``deploy(state_dict, fraction)`` registers a parameter
+    version (its layout checked at once); a deterministic ``fraction`` of
+    new admissions pins it, and the last ``ceil(fraction x replicas)``
+    replicas flip to it once empty; every session keeps the version it was
+    admitted at, through dispatch, failover and migration. ``rollback()``
+    pins new admissions to the old version at once; a full rollout becomes
+    the primary version once every replica has flipped. A worker flips in
+    place (``set_params``, no new capture). In-process replicas share one
+    model a version (each version's parameters live once on the device), so
+    an in-process flip builds a fresh engine on the version's model (one
+    capture) and leaves its siblings' weights alone (ROADMAP C14).
+  * Autoscaling. ``autoscale=dict(min_replicas, max_replicas,
+    scale_up_load, scale_down_load, every_ticks, patience)`` scales the
+    replicas in service on the fleet's load (parked requests plus each
+    serving replica's queue beyond its slots), evaluated every
+    ``every_ticks`` ticks and acted on after ``patience`` readings in a
+    row: up revives the lowest retired replica or adds one, down retires
+    the highest one through the recycle's drain.
+
+Not in this slice (ROADMAP A2.5): telemetry; its knob raises
 ``NotImplementedError``. The JAX package's kill switches are TPU rollback
-levers and are not ported (C11, C15): accept records carry session ids and
-version 0, as the JAX router's do with its fleet operations on and no
-deploy, and ``replica_mode="process"`` always means worker processes.
+levers and are not ported (C11, C15): the fleet operations are always on,
+and ``replica_mode="process"`` always means worker processes.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import os
 import random
 import threading
@@ -97,6 +134,7 @@ from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from perceiver_io_torch.generation.generate import GenerationConfig
 from perceiver_io_torch.reliability import faults
@@ -106,7 +144,9 @@ from perceiver_io_torch.serving.engine import (RequestStatus, ServedRequest, Ser
                                                _journal_config_payload)
 from perceiver_io_torch.serving.journal import JournalSession, RequestJournal, read_journal
 from perceiver_io_torch.serving.metrics import RouterMetrics
-from perceiver_io_torch.serving.transport import EngineClient, WorkerDiedError, model_recipe, spawn_worker
+from perceiver_io_torch.serving.quant import tree_layout_mismatch
+from perceiver_io_torch.serving.transport import (EngineClient, TransportError, WorkerDiedError, model_recipe,
+                                                   spawn_worker)
 
 # breaker states (the values land in the metrics' transition keys)
 BREAKER_CLOSED = "closed"
@@ -134,7 +174,8 @@ class RoutedRequest:
     deadline_s: Optional[float] = None
     failovers: int = 0  # re-dispatches survived so far
     replica: Optional[int] = None  # the replica it is on (None: parked)
-    # the parameter-version pin (always 0 until versioned rollout lands)
+    # the parameter-version pin, chosen at submit: every dispatch, failover
+    # and migration lands the session on a replica serving it
     version: int = 0
     # the fleet-unique session id every accept of this session carries:
     # recovery's key when a session is live in two journals
@@ -206,6 +247,18 @@ class RoutedRequest:
 
 
 @dataclass
+class _Version:
+    """A parameter version the router holds: its parameters by name on the
+    CPU (None: the caller's model's, version 0) and, in process, the model
+    that serves it and the served parameters its first engine made, handed
+    to its other replicas so that it is transformed once."""
+
+    state_dict: Optional[Dict[str, torch.Tensor]]
+    model: Optional[object] = None
+    served: Optional[tuple] = None
+
+
+@dataclass
 class _Replica:
     """One replica's health record."""
 
@@ -232,13 +285,21 @@ class _Replica:
     # slow, not wedged (the port's engine captures at construction, so this
     # starts at its count)
     _programs_seen: int = 0
+    # the parameter version its engine serves, and the one it is to serve
+    # (they differ while a flip waits for the replica to empty: it then
+    # takes continuations of its version only)
+    version: int = 0
+    target_version: int = 0
+    # out of service by plan (a recycle or a retirement under way): read as
+    # OPEN everywhere, without touching the breaker's ladder
+    recycling: bool = False
+    # retired by the autoscaler: its engine closed, left out of everything
+    # until a scale-up revives it
+    retired: bool = False
 
 
-# knob -> the ROADMAP item that ports it
-_UNPORTED = {
-    "autoscale": "A1.14, fleet operations",
-    "telemetry": "A2.5, telemetry (obs/)",
-}
+# the autoscaler's knobs and their defaults (the JAX router's)
+_AUTOSCALE_DEFAULTS = dict(min_replicas=1, scale_up_load=1, scale_down_load=0, every_ticks=8, patience=2)
 
 
 class ServingRouter:
@@ -257,13 +318,15 @@ class ServingRouter:
     ``max_failovers``, ``failure_threshold``, ``slow_tick_threshold_s``,
     ``slow_ticks_to_open``, ``nan_failures_to_open``,
     ``breaker_cooldown_ticks``, ``breaker_max_cooldown_ticks``; shedding:
-    ``shed_infeasible``, ``shed_min_samples``.
+    ``shed_infeasible``, ``shed_min_samples``; autoscaling: ``autoscale``
+    (a dict of the knobs in the module docstring, or None for a fixed
+    fleet).
 
-    In-process replicas share the model's parameters: ``set_params`` on one
-    replica's engine changes its siblings' weights too (per-version
-    parameters come with the fleet operations, A1.14). Process replicas
-    each build their own copy from the model's recipe, and the caller's
-    model is never handed to an engine."""
+    In-process replicas share the model's parameters (a deployed version's
+    replicas share a model built for it), so the router never calls
+    ``set_params`` on an in-process engine: an engine changes version by
+    being built again. Process replicas each build their own copy from the
+    model's recipe, and the caller's model is never handed to an engine."""
 
     def __init__(self, model, num_replicas: int = 2, num_slots: int = 4, metrics_jsonl: Optional[str] = None,
                  replica_metrics_jsonl: Optional[str] = None, prefill_buckets: Optional[Sequence[int]] = None,
@@ -281,10 +344,8 @@ class ServingRouter:
                  replica_mode: str = "inproc", transport: Optional[Dict] = None, _from_recovery: bool = False):
         if replica_mode not in ("inproc", "process"):
             raise ValueError(f"replica_mode must be 'inproc' or 'process', got {replica_mode!r}")
-        unported = [name for name, on in (("autoscale", autoscale is not None), ("telemetry", bool(telemetry))) if on]
-        if unported:
-            raise NotImplementedError("ServingRouter options not ported yet: "
-                                      + ", ".join(f"{name} ({_UNPORTED[name]})" for name in unported))
+        if telemetry:
+            raise NotImplementedError("ServingRouter options not ported yet: telemetry (A2.5, telemetry (obs/))")
         if num_replicas < 1:
             raise ValueError(f"num_replicas must be >= 1, got {num_replicas}")
         if max_failovers < 0:
@@ -307,7 +368,23 @@ class ServingRouter:
             raise ValueError(f"journal must be a per-replica template containing '{{i}}' with num_replicas > 1, "
                              f"got {journal!r}")
         self._journal_template = journal
-        # the journal policy of respawned workers' recoveries (recover()
+        self._autoscale: Optional[Dict] = None
+        if autoscale is not None:
+            knobs = dict(autoscale)
+            a = {k: int(knobs.pop(k, d)) for k, d in dict(_AUTOSCALE_DEFAULTS, max_replicas=num_replicas).items()}
+            if knobs:
+                raise ValueError(f"unknown autoscale knobs {sorted(knobs)}")
+            a["every_ticks"], a["patience"] = max(a["every_ticks"], 1), max(a["patience"], 1)
+            if not 1 <= a["min_replicas"] <= num_replicas <= a["max_replicas"]:
+                raise ValueError(f"autoscale requires 1 <= min_replicas <= num_replicas <= max_replicas, got "
+                                 f"min={a['min_replicas']} start={num_replicas} max={a['max_replicas']}")
+            if journal is not None and a["max_replicas"] > 1 and "{i}" not in journal:
+                raise ValueError("journal must be a per-replica '{i}' template when the autoscaler can grow the fleet "
+                                 "past one replica")
+            self._autoscale = a
+        self._scale_up_streak = 0
+        self._scale_down_streak = 0
+        # the journal policy of rebuilt replicas' recoveries (recover()
         # sets the dead fleet's)
         self._journal_fsync = "accept"
         self._journal_segment_max = 4096
@@ -332,9 +409,22 @@ class ServingRouter:
                                 max_prefill_slots=max_prefill_slots, kv_quant=kv_quant, weight_dtype=weight_dtype,
                                 priority_aging_ticks=priority_aging_ticks, max_preemptions=max_preemptions)
         self._replica_metrics_jsonl = replica_metrics_jsonl
-        # the first replica's served parameters, handed to its siblings so
-        # the shared model is transformed once
-        self._served = None
+        # parameter versions; every session pins one at submit. A rollout:
+        # {"version", "fraction", "count", "base"}
+        self._versions: Dict[int, _Version] = {0: _Version(None, model=model)}
+        self._next_version = 1
+        self._primary_version = 0
+        self._rollout: Optional[Dict] = None
+        # the layout (names, shapes, dtypes) a deployed version must have,
+        # read before any engine transforms the model
+        self._layout = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in model.state_dict().items()}
+        # the rolling restart and the autoscaler's retirements: the
+        # replicas still to recycle, the one under way and its mode
+        # ("restart" or "retire"), and the sessions its drain moved
+        self._restart_queue: List[int] = []
+        self._recycle_rid: Optional[int] = None
+        self._recycle_mode: Optional[str] = None
+        self._recycle_moved = 0
         # a fleet-unique session-id prefix: two fleets sharing journal
         # directories across restarts never collide on the dedup key
         self._fleet_id = uuid.uuid4().hex[:12]
@@ -374,7 +464,7 @@ class ServingRouter:
         kills its worker) and the error raised."""
         if self._replica_mode != "process":
             return [self._make_engine(i, path) for i, path in enumerate(journal_paths)]
-        recipe = model_recipe(self.model)
+        recipe = self._recipe(self._primary_version)
         workers = [spawn_worker(self.model.device) for _ in journal_paths]
         built: List[object] = [None] * len(journal_paths)
 
@@ -397,21 +487,51 @@ class ServingRouter:
             raise errors[0]
         return built
 
-    def _make_engine(self, rid: int, journal_path: Optional[str] = None, _worker=None, _recipe=None):
-        """One replica engine at the fleet's geometry: in process, over the
-        shared model; in process mode, an ``EngineClient`` whose worker
-        builds its own copy (``_worker``: one ``spawn_worker`` started;
-        ``_recipe``: the model's recipe, pickled)."""
+    def _make_engine(self, rid: int, journal_path: Optional[str] = None, version: Optional[int] = None,
+                     _worker=None, _recipe=None):
+        """One replica engine at the fleet's geometry serving ``version``
+        (the primary by default): the one construction point of the first
+        build, a respawn, a recycle, a flip and a scale-up. In process, over
+        the version's shared model; in process mode, an ``EngineClient``
+        whose worker builds its own copy (``_worker``: one ``spawn_worker``
+        started; ``_recipe``: the version's recipe, pickled)."""
+        version = self._primary_version if version is None else version
         metrics_jsonl = self._replica_metrics_jsonl.format(i=rid) if self._replica_metrics_jsonl else None
         if self._replica_mode == "process":
             return EngineClient(self.model, replica_id=rid, metrics_jsonl=metrics_jsonl, journal=journal_path,
-                                on_retry=self._note_rpc_retry, _worker=_worker, _recipe=_recipe,
+                                on_retry=self._note_rpc_retry, _worker=_worker,
+                                _recipe=self._recipe(version) if _recipe is None else _recipe,
                                 **self._transport_cfg, **self._engine_cfg)
-        engine = ServingEngine(self.model, metrics_jsonl=metrics_jsonl, journal=journal_path, _served=self._served,
-                               **self._engine_cfg)
-        if self._served is None:
-            self._served = (engine.params, engine._param_bytes, engine._param_bytes_fp)
+        record = self._versions[version]
+        engine = ServingEngine(self._version_model(version), metrics_jsonl=metrics_jsonl, journal=journal_path,
+                               _served=record.served, **self._engine_cfg)
+        if record.served is None:
+            record.served = (engine.params, engine._param_bytes, engine._param_bytes_fp)
         return engine
+
+    def _recipe(self, version: int) -> bytes:
+        """The pickled recipe a worker builds ``version``'s model from."""
+        return model_recipe(self.model, state_dict=self._versions[version].state_dict)
+
+    def _version_model(self, version: int):
+        """In process: the model that serves ``version``, built on first use
+        at the caller's model's config, dtypes and device with the version's
+        parameters. The replicas serving one version share it."""
+        record = self._versions[version]
+        if record.model is None:
+            base = self.model
+            record.model = type(base)(base.config, device=base.device, dtype=base.dtype,
+                                      param_dtype=base.param_dtype)
+            record.model.load_state_dict(record.state_dict)
+            record.model.train(base.training)
+        return record.model
+
+    def _version_params(self, version: int) -> Dict[str, torch.Tensor]:
+        """``version``'s parameters by name, for a worker's ``set_params``
+        (version 0's are the caller's model's, which process mode never
+        transforms)."""
+        params = self._versions[version].state_dict
+        return self.model.state_dict() if params is None else params
 
     def _note_rpc_retry(self, replica: int, op: str, attempt: int, err: str, delay: float) -> None:
         """``EngineClient``'s retry hook: each transport retry is an
@@ -437,10 +557,11 @@ class ServingRouter:
         (replica order, accept order within a replica) and
         ``info["parked_handles"]``; run the router as usual and each
         completes with the uninterrupted run's tokens. The model carries its
-        parameters; ``router_kwargs`` must give the dead fleet's geometry."""
-        if versions:
-            raise NotImplementedError("ServingRouter.recover(versions=...): per-version parameters come with the "
-                                      "fleet operations (A1.14)")
+        parameters, version 0's; ``versions`` gives the other versions the
+        dead fleet had deployed, ``{version: state_dict}`` under the numbers
+        its accept records pin, and each replica serves its sessions' pin
+        (a pin with no parameters given raises). ``router_kwargs`` must give
+        the dead fleet's geometry."""
         if num_replicas > 1 and "{i}" not in journal:
             raise ValueError(f"journal must be a per-replica template containing '{{i}}' with num_replicas > 1, "
                              f"got {journal!r}")
@@ -456,6 +577,8 @@ class ServingRouter:
         router = cls(model, num_replicas=num_replicas, journal=journal, _from_recovery=True, **router_kwargs)
         router._journal_fsync = fsync
         router._journal_segment_max = segment_max_records
+        for v, params in sorted((versions or {}).items()):
+            router._register_version(int(v), params)
         # per session id, the copy with the longest emitted prefix wins, ties
         # to the lowest replica
         best: Dict[str, tuple] = {}
@@ -478,17 +601,26 @@ class ServingRouter:
         per_replica: Dict[str, Dict] = {}
         for r in router.replicas:
             skip = frozenset(sid for sid in per_journal_ids[r.rid] if best[sid][0] != r.rid)
+            # every live session a replica keeps was accepted while it
+            # served the session's pin, so the pins agree
             pins = {s.version for s in states[r.rid].sessions if s.version is not None and s.session not in skip}
-            if pins - {0}:
-                raise ValueError(f"replica {r.rid} journal pins sessions to parameter versions {sorted(pins)}: "
-                                 f"this router serves version 0 only (versioned rollout is A1.14)")
+            if len(pins) > 1:
+                raise ValueError(f"replica {r.rid} journal holds sessions pinned to several parameter versions "
+                                 f"{sorted(pins)} (one replica serves one version)")
+            pin = pins.pop() if pins else router._primary_version
+            if pin not in router._versions:
+                raise ValueError(f"replica {r.rid} journal pins its sessions to parameter version {pin}, which "
+                                 f"this router does not hold: pass its parameters as versions={{{pin}: state_dict}}")
+            if pin != r.version:
+                router._serve_version(r, pin, through_journal=False)
             info = r.engine._recover_attach(journal.format(i=r.rid), fsync=fsync,
                                             segment_max_records=segment_max_records, skip_session_ids=skip,
                                             _state=states[r.rid])
             for handle in info.pop("handles"):
                 routed = RoutedRequest(request_id=next(router._ids), prompt_ids=handle.prompt_ids,
                                        config=handle.config, seed=handle.seed, priority=handle.priority,
-                                       submitted_at=now, deadline_s=handle.deadline_s, session_id=handle.session_id)
+                                       submitted_at=now, deadline_s=handle.deadline_s, session_id=handle.session_id,
+                                       version=handle.version if handle.version is not None else r.version)
                 routed._engine_handle = handle
                 routed._accepted = True
                 routed.replica = r.rid
@@ -518,11 +650,16 @@ class ServingRouter:
                 if len(s.rng) != 1:
                     raise ValueError(f"router journal session rid={s.rid} carries a {len(s.rng)}-word rng {s.rng} "
                                      f"(a JAX key); this router's requests are seeded by one integer, [seed]")
+                pin = s.version if s.version is not None else router._primary_version
+                if pin not in router._versions:
+                    raise ValueError(f"router journal holds a parked admission pinned to parameter version {pin}, "
+                                     f"which this router does not hold: pass its parameters as "
+                                     f"versions={{{pin}: state_dict}}")
                 routed = RoutedRequest(request_id=next(router._ids), prompt_ids=np.asarray(s.prompt, np.int64),
                                        config=GenerationConfig(**s.config), seed=int(s.rng[0]), priority=s.priority,
                                        submitted_at=now,
                                        # deadlines kept counting through the outage
-                                       deadline_s=s.remaining_deadline(now_wall), session_id=s.session)
+                                       deadline_s=s.remaining_deadline(now_wall), session_id=s.session, version=pin)
                 routed._router_journaled = True
                 if routed.deadline_s is not None:
                     router._deadlines_seen = True
@@ -558,7 +695,8 @@ class ServingRouter:
         the fleet cannot serve come back REJECTED, also ``shed_infeasible``
         (the live latency estimates say the deadline cannot be met).
         ``seed`` seeds a sampled request's generator on whichever replica
-        runs it; ``priority`` is its class there."""
+        runs it; ``priority`` is its class there. The request pins its
+        parameter version here (``_pick_version``) for its whole life."""
         if config is None:
             config = GenerationConfig(**kwargs)
         elif kwargs:
@@ -571,7 +709,8 @@ class ServingRouter:
             raise ValueError("prompt must be non-empty (over-long prompts are REJECTED, empty ones are malformed)")
         routed = RoutedRequest(request_id=next(self._ids), prompt_ids=prompt, config=config, seed=int(seed),
                                priority=int(priority), submitted_at=time.perf_counter(),
-                               deadline_s=deadline_s if deadline_s is not None else self.default_deadline_s)
+                               deadline_s=deadline_s if deadline_s is not None else self.default_deadline_s,
+                               version=self._pick_version())
         routed.session_id = f"{self._fleet_id}:{routed.request_id}"
         if routed.deadline_s is not None:
             self._deadlines_seen = True
@@ -594,11 +733,31 @@ class ServingRouter:
         return routed
 
     # -------------------------------------------------------------- dispatch
-    def _serving_replicas(self) -> List[_Replica]:
-        """Replicas that take new work (breaker CLOSED), least loaded first,
-        ties on the lowest index."""
-        return sorted((r for r in self.replicas if r.breaker == BREAKER_CLOSED),
-                      key=lambda r: (r.engine.load, r.rid))
+    def _pick_version(self) -> int:
+        """The version pin of one new admission: the primary, or during a
+        rollout the rollout's version for a ``fraction`` of admissions
+        (admission k takes it when ``floor((k + 1) f) > floor(k f)``: a
+        function of the submit count alone)."""
+        if self._rollout is None:
+            return self._primary_version
+        f, k = self._rollout["fraction"], self._rollout["count"]
+        self._rollout["count"] = k + 1
+        return self._rollout["version"] if math.floor((k + 1) * f) > math.floor(k * f) else self._primary_version
+
+    def _serving_replicas(self, version: Optional[int] = None, include_flipping: bool = False) -> List[_Replica]:
+        """Replicas that take new work: breaker CLOSED, neither recycling nor
+        retired, serving ``version`` when one is given; least loaded first,
+        ties on the lowest index. A replica waiting to flip takes no fresh
+        work; with ``include_flipping`` (accepted work) it comes last, since
+        it still serves its version until it empties."""
+        eligible = [r for r in self.replicas if r.breaker == BREAKER_CLOSED and not r.recycling and not r.retired
+                    and (version is None or r.version == version)
+                    and (include_flipping or r.version == r.target_version)]
+        return sorted(eligible, key=lambda r: (r.version != r.target_version, r.engine.load, r.rid))
+
+    def _active_replicas(self) -> List[_Replica]:
+        """Every replica not retired (a recycling one included)."""
+        return [r for r in self.replicas if not r.retired]
 
     def _remaining_deadline(self, routed: RoutedRequest, now: float) -> Optional[float]:
         """The deadline left for an engine hand-off: an engine counts its TTL
@@ -619,13 +778,18 @@ class ServingRouter:
                                replay_ids=emitted if emitted else None, priority=routed.priority,
                                resume=routed._accepted, session_id=routed.session_id, version=routed.version)
 
-    def _landed(self, routed: RoutedRequest, r: _Replica, handle: ServedRequest, load: int) -> None:
+    def _landed(self, routed: RoutedRequest, r: _Replica, handle: ServedRequest, load: int,
+                migrating: bool = False) -> None:
         """Bookkeeping of a hand-off ``r`` accepted. The salvage is kept:
         ``output_ids`` reads the longer of it and the engine's stream."""
         routed._engine_handle = handle
         routed.replica = r.rid
         routed._accepted = True
         r.assigned[handle.request_id] = routed
+        if migrating:
+            # the destination's accept is durable and the origin's entry
+            # still live: the one window with the session in two journals
+            faults.fire_migrate_kill()
         # the continuation's accept is durable on r now: close the origin's
         # live entry, and the router journal's parking entry
         note = routed._move_note or ("failed", "replica_failover")
@@ -648,7 +812,7 @@ class ServingRouter:
             return True
         now = time.perf_counter()
         saw_closed = False
-        for r in self._serving_replicas():
+        for r in self._serving_replicas(routed.version, include_flipping=requeue):
             if r.breaker != BREAKER_CLOSED:
                 continue  # opened mid-scan by a dispatch failure
             if r.rid == exclude_rid:
@@ -700,7 +864,8 @@ class ServingRouter:
         return False
 
     def _dispatch_pending(self) -> None:
-        while self._pending and any(r.breaker == BREAKER_CLOSED for r in self.replicas):
+        while self._pending and any(r.breaker == BREAKER_CLOSED and not r.recycling and not r.retired
+                                    for r in self.replicas):
             routed = self._pending.popleft()
             if routed.done:  # expired while parked
                 continue
@@ -774,9 +939,9 @@ class ServingRouter:
         """Lift one live session off a healthy replica: its slot and pages
         go back through the engine's eviction, its known tokens become the
         continuation's replay, and its origin journal entry stays live (the
-        continuation's durable copy until ``_hand_off_to`` lands it, which
-        closes the entry as ``("moved", reason)``). The primitive that
-        planned migration (A1.14) builds on."""
+        continuation's durable copy until it lands elsewhere, which closes
+        the entry as ``("moved", reason)``): planned migration and the
+        drains of a recycle, a retirement and a flip."""
         handle = routed._engine_handle
         r.assigned.pop(engine_rid, None)
         r.engine.evict_request(engine_rid, reason, status=RequestStatus.REJECTED, journal_terminal=False)
@@ -797,9 +962,10 @@ class ServingRouter:
         routed.replica = None
 
     def _hand_off_to(self, routed: RoutedRequest, r: _Replica) -> bool:
-        """Land one detached or parked session on replica ``r``. True when it
-        landed (or was complete); False leaves it as it was, durable through
-        its origin entry, for the caller to re-home."""
+        """Land one detached or parked session on replica ``r`` (migration's
+        targeting; ``_dispatch`` scans by load). True when it landed (or was
+        complete); False leaves it as it was, durable through its origin
+        entry, for the caller to re-home."""
         emitted = routed._salvaged
         if emitted and len(emitted) >= routed.config.max_new_tokens:
             self._resolve(routed, RequestStatus.FINISHED, "length")
@@ -812,8 +978,400 @@ class ServingRouter:
             return False
         if handle.status is RequestStatus.REJECTED:
             return False
-        self._landed(routed, r, handle, load)
+        self._landed(routed, r, handle, load, migrating=True)
         return True
+
+    def migrate(self, request_id: int, dst: int) -> bool:
+        """Planned migration: lift the session off its replica through the
+        live engine's eviction and land it on replica ``dst`` as a forced
+        replay, with the tokens of a run that never moved, no failover
+        spent and no new capture. The journals close and open exactly once
+        (the origin's entry closes once the destination's accept is
+        durable). An unknown or terminal request, a bad or non-serving
+        destination and one that serves another version than the session's
+        pin raise ``ValueError``. True once the session runs on ``dst`` (or
+        already did); False when ``dst`` refused it for capacity, and the
+        session went to another replica of its version or parked at the
+        front, durable."""
+        if not 0 <= dst < len(self.replicas):
+            raise ValueError(f"unknown replica index {dst}")
+        routed = self._find_live(request_id)
+        if routed is None:
+            raise ValueError(f"unknown or terminal request {request_id}")
+        r_dst = self.replicas[dst]
+        if r_dst.retired or r_dst.recycling or r_dst.breaker != BREAKER_CLOSED:
+            raise ValueError(f"replica {dst} is not serving (breaker {r_dst.breaker}, recycling={r_dst.recycling}, "
+                             f"retired={r_dst.retired})")
+        if r_dst.version != routed.version or r_dst.version != r_dst.target_version:
+            raise ValueError(f"migration respects the version pin: request {request_id} is pinned to "
+                             f"v{routed.version}, replica {dst} serves v{r_dst.version} (target "
+                             f"v{r_dst.target_version})")
+        if routed.replica == dst:
+            return True
+        src = routed.replica
+        handle = routed._engine_handle
+        if src is not None and handle is not None:
+            if handle.done:
+                return False  # terminal at the engine: the harvest resolves it
+            self._detach_session(self.replicas[src], handle.request_id, routed)
+        elif routed in self._pending:
+            self._pending.remove(routed)  # a parked session just lands
+        routed._move_note = ("moved", "migrated")
+        if self._hand_off_to(routed, r_dst):
+            if routed.replica == dst:  # not resolved complete on the way
+                self.metrics.record_migration(routed.request_id, src if src is not None else -1, dst,
+                                              emitted_tokens=len(routed._salvaged))
+            return True
+        # refused: accepted work goes to any replica of its version, else
+        # parks at the front (it is older than anything parked behind it)
+        routed._move_note = None
+        if routed.done:
+            return False
+        if not self._dispatch(routed, requeue=True):
+            self._pending.appendleft(routed)
+        return False
+
+    def _drain_replica(self, r: _Replica, reason: str = "recycle") -> int:
+        """Move every live session off replica ``r`` (a recycle, a
+        retirement or a flip): each is detached through the live engine and
+        goes to a sibling of its version, or parks at the front in admission
+        order, durable through its origin entry (a recycle's rebuild adopts
+        it again from the journal). Returns the sessions moved or parked."""
+        moved = 0
+        parked: List[RoutedRequest] = []
+        for engine_rid, routed in sorted(r.assigned.items()):
+            handle = routed._engine_handle
+            if handle is not None and handle.done:
+                r.assigned.pop(engine_rid, None)  # terminal, unharvested: the outcome stands
+                self._resolve(routed, handle.status, handle.finish_reason)
+                continue
+            self._detach_session(r, engine_rid, routed, reason=reason)
+            if not self._dispatch(routed, requeue=True, exclude_rid=r.rid):
+                parked.append(routed)
+            moved += 1
+        self._pending.extendleft(reversed(parked))
+        return moved
+
+    # ------------------------------------------------------ rolling restart
+    @property
+    def restart_in_progress(self) -> bool:
+        return bool(self._restart_queue) or self._recycle_rid is not None
+
+    def begin_rolling_restart(self) -> bool:
+        """Start a rolling restart: every replica in service is recycled in
+        index order, one at a time, its sessions moved to siblings or parked
+        and its engine rebuilt through its journal, and it serves again
+        before the next one starts; ``step()`` advances it. False while
+        draining; True when a restart is (or already was) under way."""
+        if self._draining:
+            return False
+        if not self.restart_in_progress:
+            self._restart_queue = [r.rid for r in self.replicas if not r.retired]
+        return True
+
+    def rolling_restart(self, max_steps: Optional[int] = None) -> bool:
+        """Begin a rolling restart and step the fleet until every replica
+        is recycled; requests submitted meanwhile are served throughout.
+        False when refused (draining)."""
+        if not self.begin_rolling_restart():
+            return False
+        steps = 0
+        while self.restart_in_progress:
+            self.step()
+            steps += 1
+            if max_steps is not None and steps > max_steps:
+                raise RuntimeError(f"rolling restart incomplete after {max_steps} steps")
+        return True
+
+    def _start_recycle(self, r: _Replica, mode: str) -> None:
+        """Take replica ``r`` out of service to rebuild it ("restart") or
+        retire it ("retire"): it reads as OPEN everywhere from now on (a
+        planned recycle is no failure: no strike, no rung on the ladder),
+        and its sessions drain out. The rebuild or close comes next tick
+        (``_finish_recycle``)."""
+        r.recycling = True
+        self._recycle_rid = r.rid
+        self._recycle_mode = mode
+        self._recycle_moved = self._drain_replica(r, reason=mode)
+
+    def _finish_recycle(self, r: _Replica) -> None:
+        """Complete the recycle begun last tick: close the engine (its
+        journal flushed), then retire the replica, or rebuild it through its
+        journal at the version it served (a session it adopts again decoded
+        under that version), adopt what the journal still holds live, and
+        give it a fresh health record. In process mode the rebuild is a
+        fresh worker."""
+        mode, self._recycle_mode = self._recycle_mode, None
+        self._recycle_rid = None
+        r.engine.discard_pending_harvest()
+        r.engine.close()
+        if mode == "retire":
+            r.retired = True
+            r.recycling = False
+            r.orphaned.clear()
+            return
+        fresh, info = self._build_fresh(r.rid, r.version)
+        self._swap_engine(r, fresh)
+        leftovers = info["sessions"] if info else 0
+        if info:
+            self._adopt_recovered(r, info)
+        r.recycling = False
+        r.orphaned.clear()
+        self._reset_health(r)
+        self.metrics.record_recycle(r.rid, sessions_moved=self._recycle_moved, leftover_sessions=leftovers,
+                                    tick=self._tick)
+
+    def _reset_health(self, r: _Replica) -> None:
+        """A fresh engine's clean slate: breaker CLOSED (set here without a
+        transition: a planned rebuild is not a recovery), strikes and the
+        ladder reset, the capture baseline at the fresh engine's count."""
+        r.breaker = BREAKER_CLOSED
+        r.consecutive_failures = r.consecutive_slow = r.nan_failures = 0
+        r.open_count = r.cooldown_ticks = 0
+        r._programs_seen = r.engine.total_compilations
+        r.last_tick = self._tick
+        r.last_error = None
+
+    def _swap_engine(self, r: _Replica, fresh) -> None:
+        """Put ``fresh`` in place of ``r``'s engine and close the old one
+        (idempotent); in process mode keep the old client's last transport
+        counters, so that the fleet's stay lifetime totals."""
+        old, r.engine = r.engine, fresh
+        old.close()
+        if self._replica_mode == "process":
+            self.retired_transport.append(old.transport_stats())
+
+    # -------------------------------------------------------------- versions
+    def _register_version(self, version: int, params) -> None:
+        """Hold ``params`` (by name, as ``state_dict()`` gives them) as
+        ``version``, copied to the CPU, once its layout matches the model's:
+        a set of other names, shapes or dtypes is refused here, through the
+        engine's ``tree_layout_mismatch`` gate, rather than at a flip."""
+        probe = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in params.items()}
+        if tree_layout_mismatch(self._layout, probe):
+            raise ValueError("a parameter version needs the names, shapes and dtypes of the model's state_dict "
+                             "(the engines serve its tensors in place)")
+        record = self._versions.setdefault(version, _Version(None))
+        record.state_dict = {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+        self._next_version = max(self._next_version, version + 1)
+
+    def _serve_version(self, r: _Replica, version: int, through_journal: bool = True) -> None:
+        """Make replica ``r``, which holds no session, serve ``version``. A
+        worker takes the parameters in place (``set_params``: no new
+        capture). An in-process engine serves a model its siblings may
+        share, so the replica gets a fresh engine on the version's model
+        (one capture), rebuilt through its journal when
+        ``through_journal``."""
+        if self._replica_mode == "process":
+            r.engine.set_params(self._version_params(version))
+            r.version = version
+            return
+        info = None
+        if through_journal:
+            r.engine.close()
+            fresh, info = self._build_fresh(r.rid, version)
+        else:
+            fresh = self._make_engine(r.rid, journal_path=None, version=version)
+        self._swap_engine(r, fresh)
+        r._programs_seen = fresh.total_compilations
+        r.version = version
+        if info:
+            self._adopt_recovered(r, info)
+
+    def deploy(self, state_dict, fraction: float = 1.0) -> Optional[int]:
+        """Register a parameter version and roll it out: a deterministic
+        ``fraction`` of new admissions pins it (``_pick_version``) and the
+        last ``ceil(fraction x replicas)`` replicas in service are targeted
+        to flip to it, each once empty (its sessions move to replicas of
+        their version or finish in place). ``state_dict``: the parameters by
+        name, of the model's layout (checked now). Returns the version
+        (None while draining). A session keeps its pin for life."""
+        if self._draining:
+            return None
+        if not 0.0 <= float(fraction) <= 1.0:
+            raise ValueError(f"fraction must lie in [0, 1], got {fraction}")
+        version = self._next_version
+        self._register_version(version, state_dict)
+        base = self._primary_version
+        self._rollout = {"version": version, "fraction": float(fraction), "count": 0, "base": base}
+        active = self._active_replicas()
+        k = math.ceil(float(fraction) * len(active)) if fraction > 0 else 0
+        targets = [r.rid for r in active[len(active) - k:]] if k else []
+        for r in active:
+            r.target_version = version if r.rid in targets else base
+        self.metrics.record_deploy(version, float(fraction), targets)
+        self.metrics.set_fleet_gauges(len(active), self.restart_in_progress, self._primary_version)
+        return version
+
+    def rollback(self) -> bool:
+        """Roll the rollout back: new admissions pin the version before it
+        at once, and the replicas flip back as they empty; sessions pinned
+        to the rollout's version finish on it. False with no rollout (a
+        full rollout that was promoted has none)."""
+        if self._rollout is None:
+            return False
+        version, base = self._rollout["version"], self._rollout["base"]
+        self._rollout = None
+        self._primary_version = base
+        for r in self.replicas:
+            if not r.retired:
+                r.target_version = base
+        self._prune_versions()
+        self.metrics.record_rollback(version, base)
+        return True
+
+    def _prune_versions(self) -> None:
+        """Drop the versions nothing refers to (not the primary, nor the
+        rollout's, nor a replica's current or target version, nor a live
+        session's pin), with their in-process models."""
+        keep = {self._primary_version}
+        if self._rollout is not None:
+            keep |= {self._rollout["version"], self._rollout["base"]}
+        for r in self.replicas:
+            keep |= {r.version, r.target_version}
+            keep.update(routed.version for routed in r.assigned.values())
+        keep.update(p.version for p in self._pending)
+        for v in [v for v in self._versions if v not in keep]:
+            del self._versions[v]
+
+    def _advance_rollout_flips(self) -> None:
+        """Flip each replica whose target differs and that can: an empty one
+        now; one with sessions drains them to replicas of its version when
+        there are any, else they finish in place and the flip waits. The
+        last replica of a version that parked work is pinned to waits too.
+        Then a full rollout whose version every replica serves, with no
+        parked work of another version, becomes the primary."""
+        for r in self.replicas:
+            if r.retired or r.recycling or r.version == r.target_version:
+                continue
+            if r.assigned:
+                if self._serving_replicas(version=r.version):
+                    self._drain_replica(r, reason="version_flip")
+                continue  # checked again next tick
+            if r.engine.scheduler.has_work:
+                continue  # resumed work queued at the engine
+            others = any(o is not r and not o.retired and not o.recycling and o.version == r.version
+                         for o in self.replicas)
+            if not others and any(p.version == r.version for p in self._pending):
+                continue
+            if self._replica_mode == "process" and (r.breaker != BREAKER_CLOSED or not r.engine.alive):
+                # a worker out of service or dead flips once it is back (the
+                # respawn or the half-open swap builds it at r.version)
+                continue
+            try:
+                self._serve_version(r, r.target_version)
+            except TransportError as exc:
+                # a worker that died or hung since its last tick: a strike
+                # (a journaled fleet respawns a dead one), and the flip waits
+                self._on_tick_failure(r, exc)
+                continue
+            # the version it left may have no user now: free its model
+            self._prune_versions()
+        if self._rollout is not None and self._rollout["fraction"] >= 1.0:
+            v = self._rollout["version"]
+            active = self._active_replicas()
+            if (active and all(r.version == v and r.target_version == v for r in active)
+                    and not any(p.version != v for p in self._pending)):
+                self._primary_version = v
+                self._rollout = None
+                self._prune_versions()
+                self.metrics.set_fleet_gauges(len(active), self.restart_in_progress, v)
+
+    # ------------------------------------------------------------- autoscale
+    def _fleet_load(self) -> int:
+        """The autoscaler's signal: parked requests plus each serving
+        replica's queue beyond its slots."""
+        return len(self._pending) + sum(max(r.engine.load, 0) for r in self.replicas
+                                        if not r.retired and not r.recycling and r.breaker != BREAKER_OPEN)
+
+    def _autoscale_eval(self) -> None:
+        a = self._autoscale
+        if self._tick % a["every_ticks"] != 0:
+            return
+        load = self._fleet_load()
+        active = len(self._active_replicas())
+        over, under = load >= a["scale_up_load"], load <= a["scale_down_load"]
+        self._scale_up_streak = self._scale_up_streak + 1 if over else 0
+        self._scale_down_streak = self._scale_down_streak + 1 if under and not over else 0
+        if self._scale_up_streak >= a["patience"] and active < a["max_replicas"]:
+            self._scale_up_streak = 0
+            self._scale_up(load)
+        elif (self._scale_down_streak >= a["patience"] and active > a["min_replicas"]
+              and self._recycle_rid is None and not self._restart_queue):
+            self._scale_down_streak = 0
+            self._scale_down(load)
+
+    def _scale_up_version(self) -> int:
+        """The version a new replica serves: the primary, unless a rollout
+        would have fewer than ``ceil(fraction x replicas)`` replicas
+        targeting its version after the scale-up (its pinned admissions
+        would park)."""
+        if self._rollout is None:
+            return self._primary_version
+        v = self._rollout["version"]
+        want = math.ceil(self._rollout["fraction"] * (len(self._active_replicas()) + 1))
+        targeting = sum(1 for r in self.replicas if not r.retired and r.target_version == v)
+        return v if targeting < want else self._primary_version
+
+    def _scale_up(self, load: int) -> None:
+        """Add a replica: revive the lowest retired one (through its journal
+        when it has one), else append one at the next index, serving
+        ``_scale_up_version()``."""
+        version = self._scale_up_version()
+        retired = [r for r in self.replicas if r.retired]
+        if retired:
+            r = min(retired, key=lambda x: x.rid)
+            fresh, info = self._build_fresh(r.rid, version)
+            self._swap_engine(r, fresh)
+            r.retired = r.recycling = False
+        else:
+            fresh, info = self._build_fresh(len(self.replicas), version)
+            r = _Replica(rid=len(self.replicas), engine=fresh)
+            self.replicas.append(r)
+        r.version = r.target_version = version
+        self._reset_health(r)
+        if info:
+            self._adopt_recovered(r, info)
+        self.metrics.record_autoscale("up", r.rid, active=len(self._active_replicas()), load=load, tick=self._tick)
+
+    def _scale_down(self, load: int) -> None:
+        """Retire the highest replica whose retirement strands nothing (its
+        version lives on a sibling while a session pins it, and a rollout
+        keeps one replica targeting its version), through the recycle's
+        drain; it closes next tick."""
+        for r in sorted((r for r in self.replicas if not r.retired and not r.recycling), key=lambda x: -x.rid):
+            others = any(o is not r and not o.retired and o.version == r.version for o in self.replicas)
+            pinned = bool(r.assigned) or any(p.version == r.version for p in self._pending)
+            if pinned and not others:
+                continue
+            if self._rollout is not None:
+                v = self._rollout["version"]
+                if r.target_version == v and not any(o is not r and not o.retired and o.target_version == v
+                                                     for o in self.replicas):
+                    continue
+            self.metrics.record_autoscale("down", r.rid, active=len(self._active_replicas()) - 1, load=load,
+                                          tick=self._tick)
+            self._start_recycle(r, mode="retire")
+            return
+
+    def _advance_fleet_ops(self) -> None:
+        """One tick of the fleet operations, early in ``step()``: finish the
+        recycle begun last tick; then, unless draining, flip what can flip,
+        start the next restart's recycle (after the last one's parked work
+        had a tick to land) and evaluate the autoscaler."""
+        if self._recycle_rid is not None:
+            self._finish_recycle(self.replicas[self._recycle_rid])
+        if self._draining:
+            # parked work may need the recycled replica back; nothing new starts
+            self._restart_queue = []
+            return
+        self._advance_rollout_flips()
+        if self._recycle_rid is None and self._restart_queue:
+            r = self.replicas[self._restart_queue.pop(0)]
+            if not r.retired:
+                self._start_recycle(r, mode="restart")
+        if self._autoscale is not None:
+            self._autoscale_eval()
 
     # ---------------------------------------------------------------- breaker
     def _transition(self, r: _Replica, new: str) -> None:
@@ -836,6 +1394,8 @@ class ServingRouter:
 
     def _promote_breakers(self) -> None:
         for r in self.replicas:
+            if r.recycling or r.retired:
+                continue  # out of service by plan, not by the breaker
             if r.breaker == BREAKER_OPEN and self._tick - r.opened_at_tick >= r.cooldown_ticks:
                 self._transition(r, BREAKER_HALF_OPEN)
                 if self._replica_mode == "process" and not r.engine.alive:
@@ -920,15 +1480,15 @@ class ServingRouter:
         journal_dir = self._journal_template.format(i=rid) if self._journal_template else None
         return journal_dir if journal_dir is not None and os.path.isdir(journal_dir) else None
 
-    def _build_fresh(self, rid: int):
-        """A fresh engine for replica ``rid``: when the fleet journals and the
-        replica's directory exists, built THROUGH journal recovery (the swap
-        starts a new generation holding its live sessions, which the caller
-        adopts), else built with the journal attached. Returns ``(engine,
-        info or None)``."""
+    def _build_fresh(self, rid: int, version: int):
+        """A fresh engine for replica ``rid`` serving ``version``: when the
+        fleet journals and the replica's directory exists, built THROUGH
+        journal recovery (the swap starts a new generation holding its live
+        sessions, which the caller adopts), else built with the journal
+        attached. Returns ``(engine, info or None)``."""
         journal_dir = self._journal_template.format(i=rid) if self._journal_template else None
         if self._replica_journal(rid) is not None:
-            fresh = self._make_engine(rid, journal_path=None)
+            fresh = self._make_engine(rid, journal_path=None, version=version)
             try:
                 info = fresh._recover_attach(journal_dir, fsync=self._journal_fsync,
                                              segment_max_records=self._journal_segment_max)
@@ -936,19 +1496,28 @@ class ServingRouter:
                 fresh.close()
                 raise
             return fresh, info
-        return self._make_engine(rid, journal_path=journal_dir), None
+        return self._make_engine(rid, journal_path=journal_dir, version=version), None
 
     def _adopt_recovered(self, r: _Replica, info: Dict) -> None:
         """Wire a rebuilt replica's recovered sessions into the router's
         books. A session whose id matches a PARKED request is that request:
         the parked handle adopts the fresh engine handle (no duplicate, and
         its origin anchor clears, since the new generation holds it under
-        the new engine id). Any other enters the books as a fresh submit and
-        dispatch, as ``recover()`` does."""
+        the new engine id); a parked session pinned to another version than
+        the replica serves stays parked, lifted off the engine and anchored
+        to the new generation's entry. Any other enters the books as a fresh
+        submit and dispatch, as ``recover()`` does, pinned to the replica's
+        version (it decoded there)."""
         now = time.perf_counter()
         parked = {p.session_id: p for p in self._pending if p.session_id is not None and not p.done}
         for handle in info.pop("handles"):
             routed = parked.get(handle.session_id)
+            if routed is not None and routed.version != r.version:
+                r.engine.evict_request(handle.request_id, "version_mismatch", status=RequestStatus.REJECTED,
+                                       journal_terminal=False)
+                r.engine.finished = [h for h in r.engine.finished if h is not handle]
+                routed._journal_origin = (r.rid, handle.request_id)
+                continue
             if routed is not None:
                 self._pending.remove(routed)
                 routed._journal_origin = None
@@ -956,7 +1525,7 @@ class ServingRouter:
             else:
                 routed = RoutedRequest(request_id=next(self._ids), prompt_ids=handle.prompt_ids, config=handle.config,
                                        seed=handle.seed, priority=handle.priority, submitted_at=now,
-                                       deadline_s=handle.deadline_s, session_id=handle.session_id)
+                                       deadline_s=handle.deadline_s, session_id=handle.session_id, version=r.version)
                 if routed.deadline_s is not None:
                     self._deadlines_seen = True
                 self.metrics.record_submit(routed.request_id, int(handle.prompt_ids.size), priority=routed.priority,
@@ -991,8 +1560,9 @@ class ServingRouter:
         sibling, or ended there) and is closed with a terminal record, so it
         is served exactly once. The JAX router keeps those that have ended
         elsewhere; it respawns only at the dead worker's next RPC, before a
-        sibling can end one."""
-        if self._replica_journal(r.rid) is None:
+        sibling can end one. A replica out of service by plan is not
+        respawned."""
+        if r.recycling or r.retired or self._replica_journal(r.rid) is None:
             return False
         # park every live hand-off as a failover would, but spend no
         # failover budget: the respawn adopts the SAME sessions from the
@@ -1018,11 +1588,11 @@ class ServingRouter:
             self._pending.extendleft(reversed(parked))
         r.engine.close()  # reaps the dead worker; never raises
         try:
-            fresh, info = self._build_fresh(r.rid)
+            fresh, info = self._build_fresh(r.rid, r.version)
         except Exception as exc:  # noqa: BLE001 — the respawn failed: a strike instead
             r.last_error = f"respawn failed: {type(exc).__name__}: {exc}"
             return False
-        self._retire(r, fresh)
+        self._swap_engine(r, fresh)
         recovered = info["sessions"] if info else 0
         if info:
             waiting = {p.session_id for p in self._pending if p.session_id is not None and not p.done}
@@ -1041,14 +1611,7 @@ class ServingRouter:
         r.orphaned.clear()
         if r.breaker != BREAKER_CLOSED:
             self._transition(r, BREAKER_CLOSED)
-        r.consecutive_failures = 0
-        r.consecutive_slow = 0
-        r.nan_failures = 0
-        r.open_count = 0
-        r.cooldown_ticks = 0
-        r._programs_seen = r.engine.total_compilations
-        r.last_tick = self._tick
-        r.last_error = None
+        self._reset_health(r)
         self.metrics.record_respawn(r.rid, sessions=recovered, tick=self._tick)
         return True
 
@@ -1058,21 +1621,14 @@ class ServingRouter:
         died with the old process (their requests failed over from the
         mirrors). False when the worker does not come up."""
         try:
-            fresh = self._make_engine(r.rid, journal_path=None)
+            fresh = self._make_engine(r.rid, journal_path=None, version=r.version)
         except Exception as exc:  # noqa: BLE001 — the probe tick then fails and opens the breaker again
             r.last_error = f"respawn failed: {type(exc).__name__}: {exc}"
             return False
-        self._retire(r, fresh)
+        self._swap_engine(r, fresh)
         r.orphaned.clear()
         r._programs_seen = fresh.total_compilations
         return True
-
-    def _retire(self, r: _Replica, fresh) -> None:
-        """Put ``fresh`` in place of ``r``'s dead client, keeping the dead
-        one's last transport counters."""
-        old, r.engine = r.engine, fresh
-        old.close()
-        self.retired_transport.append(old.transport_stats())
 
     # --------------------------------------------------------------- failover
     def _failover_replica(self, r: _Replica) -> None:
@@ -1149,15 +1705,21 @@ class ServingRouter:
     def has_work(self) -> bool:
         """True while a non-terminal request can still progress: parked,
         handed off, or engine work on a replica the router ticks (an OPEN
-        replica's stale slots do not count: their requests moved on)."""
-        return (bool(self._pending) or any(r.assigned for r in self.replicas)
-                or any(r.breaker != BREAKER_OPEN and r.engine.scheduler.has_work for r in self.replicas))
+        replica's stale slots do not count: their requests moved on), or
+        while a rolling restart is under way (it ends in bounded ticks)."""
+        return (bool(self._pending) or self.restart_in_progress or any(r.assigned for r in self.replicas)
+                or any(r.breaker != BREAKER_OPEN and not r.recycling and not r.retired and r.engine.scheduler.has_work
+                       for r in self.replicas))
 
     def step(self) -> bool:
-        """One router tick: promote breakers, place parked work, then tick
-        every replica that serves or probes in two halves, DISPATCH all
-        (each replica's decode goes on the device) and then HARVEST all (each
-        one's sync and evictions). Returns True while work remains."""
+        """One router tick: promote breakers, advance the fleet operations
+        (finish last tick's recycle, flip, start the next recycle, the
+        autoscaler: before placing parked work, so that work a drain parked
+        lands this tick), place parked work, then tick every replica that
+        serves or probes in two halves, DISPATCH all (each replica's decode
+        goes on the device) and then HARVEST all (each one's sync and
+        evictions). A replica recycling or retired is not ticked. Returns
+        True while work remains."""
         if self._preempt_requested and not self._draining:
             self.preempted = True
             self._begin_drain()
@@ -1165,9 +1727,10 @@ class ServingRouter:
         if self._deadlines_seen:
             self._expire_pending(time.perf_counter())
         self._promote_breakers()
+        self._advance_fleet_ops()
         self._dispatch_pending()
         # CLOSED replicas serve; HALF_OPEN ones always get their probe tick
-        ticking = [r for r in self.replicas if r.breaker != BREAKER_OPEN]
+        ticking = [r for r in self.replicas if r.breaker != BREAKER_OPEN and not r.recycling and not r.retired]
         dispatched: List[_Replica] = []
         for r in ticking:
             try:
@@ -1212,7 +1775,8 @@ class ServingRouter:
         """Close admission fleet-wide: reject the parked fresh submits and
         every serving replica's queued backlog; running slots keep decoding.
         Parked continuations are accepted work: they stay parked and finish
-        (landing on draining engines as resumes)."""
+        (landing on draining engines as resumes). A rolling restart stops:
+        its queued recycles never start; the one under way completes."""
         self._draining = True
         kept: Deque[RoutedRequest] = deque()
         while self._pending:
@@ -1222,8 +1786,9 @@ class ServingRouter:
             else:
                 self._resolve(routed, RequestStatus.REJECTED, "draining")
         self._pending = kept
+        self._restart_queue = []
         for r in self.replicas:
-            if r.breaker != BREAKER_OPEN:
+            if r.breaker != BREAKER_OPEN and not r.recycling and not r.retired:
                 r.engine._begin_drain()
 
     def drain(self, max_steps: Optional[int] = None) -> List[RoutedRequest]:
@@ -1245,7 +1810,7 @@ class ServingRouter:
         None while every healthy replica is cold: a cold fleet never sheds."""
         best = None
         for r in self.replicas:
-            if r.breaker != BREAKER_CLOSED:
+            if r.breaker != BREAKER_CLOSED or r.recycling or r.retired:
                 continue
             est = r.engine.metrics.latency_estimates()
             if est is None or est["decode_steps"] < self.shed_min_samples:
@@ -1284,6 +1849,8 @@ class ServingRouter:
         return totals
 
     def _replica_snapshots(self) -> Dict[str, Dict]:
+        self.metrics.set_fleet_gauges(sum(not r.retired and not r.recycling for r in self.replicas),
+                                      self.restart_in_progress, self._primary_version)
         self.metrics.set_transport(self._transport_stats())
         out = {}
         for r in self.replicas:
@@ -1291,6 +1858,14 @@ class ServingRouter:
             snap["breaker"] = r.breaker
             snap["last_tick"] = r.last_tick
             snap["nan_failures"] = r.nan_failures
+            if r.recycling:
+                snap["recycling"] = True
+            if r.retired:
+                snap["retired"] = True
+            if self._next_version > 1:
+                # version markers once a second version exists
+                snap["version"] = r.version
+                snap["target_version"] = r.target_version
             if r.last_error:
                 snap["last_error"] = r.last_error
             out[f"r{r.rid}"] = snap

@@ -168,13 +168,15 @@ def recv_frame(sock: socket.socket) -> bytes:
 # ------------------------------------------------------------- the recipe
 
 
-def model_recipe(model) -> bytes:
+def model_recipe(model, state_dict=None) -> bytes:
     """What a worker needs to build ``model`` again, pickled: its config,
-    compute and parameter dtypes, device and ``state_dict`` moved to the
-    CPU. Pickled once, it can go to several workers."""
+    compute and parameter dtypes, device and ``state_dict`` (or the
+    ``state_dict`` given: another parameter version of the same layout)
+    moved to the CPU. Pickled once, it can go to several workers."""
+    state = model.state_dict() if state_dict is None else state_dict
     return pickle.dumps({"config": model.config, "dtype": model.dtype, "param_dtype": model.param_dtype,
                          "device": str(model.device),
-                         "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+                         "state_dict": {k: v.detach().cpu() for k, v in state.items()}},
                         protocol=pickle.HIGHEST_PROTOCOL)
 
 

@@ -1370,3 +1370,68 @@ def test_process_router_on_the_card_matches_in_process_and_respawns(card, tmp_pa
             assert all(r.engine.device_stats()["probe"] == 28.0 for r in router.replicas)
         finally:
             router.close()
+
+
+def test_fleet_ops_deploy_flip_and_rolling_restart_on_the_card(card, tmp_path):
+    """The fleet operations over two graph replicas on the card: a partial
+    deploy flips replica 1 to a second model's weights by building it a
+    fresh engine (one capture) while replica 0 keeps its engine and
+    weights; each request (greedy and sampled) decodes its pinned version's
+    tokens. Then a journaled rolling restart under load rebuilds both
+    replicas (one capture each) with the same tokens. Every engine the
+    fleet built replays once a decode tick, and the kernels' counts equal
+    all the replays, and the warm-up step of each engine built after the
+    counters were zeroed, times a capture's launches."""
+    cfg, model = _graph_model(card)
+    v1 = CausalSequenceModel(cfg, device=card, seed=5)
+    kw = dict(num_slots=3, kv_page_size=5)
+    ref0, ref1 = _router_reference(model, kw), _router_reference(v1, kw)
+    assert ref0 != ref1
+    per_capture = {"B2": cfg.num_self_attention_layers, "B3": 1, "B4": 0}
+    router = ServingRouter(model, num_replicas=2, journal=str(tmp_path / "r{i}"), **kw)
+    seen = {r.rid: r.engine for r in router.replicas}
+    engines = list(seen.values())
+
+    def step():
+        work = router.step()
+        for r in router.replicas:
+            if seen[r.rid] is not r.engine:
+                seen[r.rid] = r.engine
+                engines.append(r.engine)
+        return work
+
+    torch.cuda.synchronize()
+    dk.launches = pk.launches = rk.launches = 0
+    e0 = router.replicas[0].engine
+    router.deploy(v1.state_dict(), fraction=0.5)
+    step()
+    assert [r.version for r in router.replicas] == [0, 1] and router.replicas[0].engine is e0
+    handles = [router.submit(p, seed=i, **o) for i, (p, o) in enumerate(ROUTER_REQUESTS)]
+    while step():
+        pass
+    assert [h.version for h in handles] == [0, 1, 0, 1, 0]
+    assert [h.result().tolist() for h in handles] == [(ref1 if h.version else ref0)[i] for i, h in enumerate(handles)]
+    assert router.rollback()
+    for _ in range(2):
+        step()
+    assert [r.version for r in router.replicas] == [0, 0]
+    handles = [router.submit(p, seed=i, **o) for i, (p, o) in enumerate(ROUTER_REQUESTS[:2])]
+    step()
+    assert router.begin_rolling_restart()
+    handles += [router.submit(p, seed=i + 2, **o) for i, (p, o) in enumerate(ROUTER_REQUESTS[2:])]
+    while step():
+        pass
+    assert [h.result().tolist() for h in handles] == ref0
+    snap = router.snapshot()
+    router.close()
+    assert snap["fleet_ops"]["recycles"] == 2 and snap["failovers"] == 0 and snap["breaker_transitions"] == {}
+    assert len(engines) == 2 + 2 + 2  # the first two, the flip and the flip back, two rebuilds
+    for e in engines:
+        assert e.decode_compilations == e.total_compilations == 1
+        assert e.graph_replays == e.metrics.decode_steps
+    # an engine built after the counters were zeroed ran one eager decode
+    # step before its capture (the capture's warm-up)
+    passes = sum(e.graph_replays for e in engines) + len(engines) - 2
+    torch.cuda.synchronize()
+    assert {"B2": dk.launches, "B3": pk.launches, "B4": rk.launches} == {
+        k: passes * v for k, v in per_capture.items()}

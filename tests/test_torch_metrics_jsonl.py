@@ -7,7 +7,10 @@ and timings left out), on dense and paged pools, under preemption, with
 chunked prefill and the prefix cache, and with the journal's ``recovery``
 event. Each package's ``load_metrics_jsonl`` reads the other's file; the
 reader normalises the fields older schemas lack; ``close`` is idempotent;
-a signal's drain writes the final snapshot."""
+a signal's drain writes the final snapshot. A quantized engine's greedy
+agreement with a float reference (``record_quant_agreement``) rides its
+``quant_agreement`` event and its ``kv_quant`` section, as in the JAX
+engine."""
 
 import json
 import signal
@@ -28,7 +31,7 @@ TIMED = {"ts", "wait_s", "prefill_s", "seconds"}
 # the snapshot counters both engines keep under the same keys
 COUNTERS = ("requests_submitted", "requests_admitted", "requests_finished", "rejected", "timed_out", "failed",
             "tokens_generated", "decode_steps", "prefills", "preemptions", "preempted_replays", "queue_depth",
-            "failovers", "shed_infeasible", "breaker_transitions", "fleet_ops", "transport", "schema")
+            "failovers", "shed_infeasible", "breaker_transitions", "fleet_ops", "transport", "kv_quant", "schema")
 SCENARIOS = {
     "dense": (dict(num_slots=2), False),
     "paged-fp": (dict(num_slots=3, kv_page_size=PAGE), False),
@@ -199,3 +202,36 @@ def test_a_signal_drain_writes_the_final_snapshot(pair, tmp_path):
     snap = got["snapshots"][-1]
     assert snap["requests_finished"] == 2 and snap["rejected"] == 1 and snap["journal"]["live_sessions"] == 0
     assert engine.journal._closed and engine.metrics._closed
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quant_agreement_event_and_kv_quant_section(pair, mode, tmp_path):
+    """``record_quant_agreement`` folds samples into the ``kv_quant``
+    section's ``agreement_tokens``, ``agreement_matched`` and
+    ``agreement_rate`` (None before any sample) and writes a
+    ``quant_agreement`` event, as the JAX engine's does on the same pool;
+    each package's reader takes the other's file."""
+    jm, params, tm = pair
+    files, snaps = {}, {}
+    for pkg in ("port", "jax"):
+        path = tmp_path / f"{pkg}.jsonl"
+        kw = dict(num_slots=2, kv_page_size=PAGE, kv_quant=mode, metrics_jsonl=str(path))
+        engine = ServingEngine(tm, **kw) if pkg == "port" else JaxEngine(jm, params, **kw)
+        cold = engine.metrics.snapshot()["kv_quant"]
+        assert cold["agreement_tokens"] == cold["agreement_matched"] == 0 and cold["agreement_rate"] is None
+        engine.metrics.record_quant_agreement(matched=7, total=8)
+        engine.metrics.record_quant_agreement(matched=2, total=4)
+        snaps[pkg] = engine.metrics.write_snapshot()["kv_quant"]
+        engine.close()
+        files[pkg] = path
+    assert snaps["port"] == snaps["jax"]
+    assert (snaps["port"]["agreement_tokens"], snaps["port"]["agreement_matched"]) == (12, 9)
+    assert snaps["port"]["agreement_rate"] == 0.75 and snaps["port"]["mode"] == mode
+    for writer in ("port", "jax"):
+        for reader in (load_metrics_jsonl, jax_load_metrics_jsonl):
+            got = reader(str(files[writer]))
+            events = [{k: v for k, v in e.items() if k != "ts"} for e in got["events"]
+                      if e["event"] == "quant_agreement"]
+            assert events == [{"event": "quant_agreement", "matched": 7, "total": 8},
+                              {"event": "quant_agreement", "matched": 2, "total": 4}]
+            assert got["snapshots"][-1]["kv_quant"] == snaps["port"]

@@ -641,6 +641,10 @@ def test_submit_validation_and_unported_options(pair, tmp_path):
         ServingRouter(tm, max_failovers=-1)
     with pytest.raises(ValueError, match="replica_mode"):
         ServingRouter(tm, replica_mode="thread")
-    for kw, item in ((dict(autoscale={}), "A1.14"), (dict(telemetry=str(tmp_path / "t.json")), "A2.5")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServingRouter(tm, **kw)
+    # autoscale is ported: its knobs are validated as the JAX router's are
+    with pytest.raises(ValueError, match="unknown autoscale knobs"):
+        ServingRouter(tm, num_replicas=1, autoscale=dict(max_replicas=2, bogus=1))
+    with pytest.raises(ValueError, match="min_replicas"):
+        ServingRouter(tm, num_replicas=1, autoscale=dict(min_replicas=2, max_replicas=4))
+    with pytest.raises(NotImplementedError, match="A2.5"):
+        ServingRouter(tm, telemetry=str(tmp_path / "t.json"))

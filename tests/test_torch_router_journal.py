@@ -11,6 +11,7 @@ equals the JAX engine on these prompts (``tests/test_torch_router.py``)."""
 import time
 
 import pytest
+import torch
 from test_torch_support import SERVING, build_pair
 
 from perceiver_io_torch.generation.generate import GenerationConfig
@@ -90,8 +91,9 @@ def test_journal_template_validation(tm, tmp_path):
         ServingRouter(tm, num_replicas=2, journal=str(tmp_path / "flat"))
     with pytest.raises(ValueError, match="template"):
         ServingRouter.recover(tm, str(tmp_path / "flat"), num_replicas=2)
-    with pytest.raises(NotImplementedError, match="A1.14"):
-        ServingRouter.recover(tm, str(tmp_path / "r{i}"), versions={1: None})
+    # versions= is ported: a version's parameters pass the layout gate first
+    with pytest.raises(ValueError, match="names, shapes and dtypes"):
+        ServingRouter.recover(tm, str(tmp_path / "r{i}"), versions={1: {"bogus": torch.zeros(1)}})
     # a live journal beyond num_replicas is refused, a drained one is not
     template = str(tmp_path / "fleet{i}")
     router = ServingRouter(tm, num_replicas=3, num_slots=1, journal=template)
