@@ -128,8 +128,8 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     runs the same bits, timed with the bound and the
                     library call
   4. main_path      flagship generation in bf16 at batch 8 through generate():
-                    greedy, rolling window, chunked, left-padded, each REPEATS
-                    times; prefill and the decode loop are timed apart inside
+                    greedy, rolling window, chunked, left-padded, each
+                    MAIN_PATH_REPEATS times; prefill and the decode loop are timed apart inside
                     each call; the B2 counter must equal (1 + layers) x decode
                     iterations
   5. serving        the flagship engine in bf16, 8 slots, a seeded stream of 32
@@ -146,7 +146,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     engine, whose every replay launches B2 once per layer
                     plus one cross-attention kernel (B2, B3 or B4); greedy
                     tokens identical across repeats and to an eager engine
-                    (cuda_graph=False) over the stream's first 16 requests,
+                    (cuda_graph=False) over the stream's first 8 requests,
                     whose first decoding tick's logits lie within 0.03 x
                     their RMS
      serving_lifecycle  the same model and stream in dense, paged_fp and
@@ -264,6 +264,28 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     one capture still, the prefix cache empty, 8 requests'
                     tokens equal to a fresh engine's on those parameters.
                     Journal directories live under a temporary directory.
+     telemetry      (a) the same model, 8 slots, paged_int4, the stream's
+                    first 16 requests through a telemetry-on engine (its
+                    Chrome trace written to a path) and a telemetry-off
+                    one, in turns, twice: greedy tokens identical, one
+                    capture each; the trace valid with one async begin and
+                    one end a request; serving.tick spans = the run's ticks
+                    and sample_sync spans = its harvests; the compile block
+                    decode_step 1 against budget 1, nothing unexpected; the
+                    run's host syncs (torch.cuda.set_sync_debug_mode "warn")
+                    equal on and off; ms a tick on and off and the phase
+                    table of a tick; (b) a two-replica in-process router in
+                    paged_fp with telemetry on over the same 16 requests:
+                    both replicas' span namespaces, a merged compile report
+                    of 2 entries, nothing unexpected; (c) after train, the
+                    flagship from its seeded weights through Trainer.fit for
+                    12 steps (log_every 4) with telemetry and profile_dir
+                    (profile_start_step 3, 3 steps) and again with both
+                    off: the losses the same bits, train.step_dispatch 12
+                    and train.log_sync 3 spans, the torch.profiler trace
+                    names B1's kernels (flash_fwd_mma_kernel,
+                    flash_bwd_*), nothing unexpected; the step's phase
+                    table and the trace's top kernels by device time
   6. train_resilient  the flagship (one model, built once for this and
                     train) through run_fit / Trainer.fit with prefetch_depth
                     2 and lineage saves every 4 steps through the async
@@ -389,6 +411,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -410,6 +433,7 @@ from perceiver_io_torch.models.core.config import CausalSequenceModelConfig, clm
 from perceiver_io_torch.models.core.perceiver_ar import CausalSequenceModel
 from perceiver_io_torch.models.vision.image_classifier import ImageClassifier, vision_perceiver_fourier_config
 from perceiver_io_torch.models.vision.optical_flow import OpticalFlow, official_41m_config
+from perceiver_io_torch.obs import load_chrome_trace, validate_chrome_trace
 from perceiver_io_torch.ops import cuda_build
 from perceiver_io_torch.ops.position import apply_rope, frequency_position_encoding
 from perceiver_io_torch.parallel.mesh import make_mesh, set_mesh
@@ -435,9 +459,10 @@ F32_FLOP_PER_S = 495e12 / 3
 F32_CUDA_CORE_FLOP_PER_S = 67e12
 SEED = 0
 DEVICE = "cuda"
-REPEATS = 3  # generate() calls per main-path run, windows of a train phase; medians and spreads are printed
+REPEATS = 3  # windows of a train phase, forwards of a vision phase; medians and spreads are printed
+MAIN_PATH_REPEATS = 2  # generate() calls per main-path run (two, not REPEATS: the card's time limit)
 SERVING_REPEATS = 2  # engine runs per pool mode in serving() (two, not REPEATS: the card's time limit)
-GRAPH_VS_EAGER_REQUESTS = 16  # serving()'s eager engine takes the stream's first half: two waves of 8 slots
+GRAPH_VS_EAGER_REQUESTS = 8  # serving()'s eager engine takes the stream's first 8 requests: one wave of 8 slots
 # Kernel vs plain: float32 within an absolute 1e-4. In bfloat16 both sides sum
 # in float32 and round the output to bfloat16 apart, so they may differ by one
 # bfloat16 step (up to 2**-7 of a value); the limit is that fraction of the
@@ -1628,7 +1653,7 @@ def main_path():
     total_launches, outputs = 0, {}
     for name, ids, num_latents, max_new, pm, extra in runs:
         prefill_ms, ms_per_iteration, tokens_per_s, news = [], [], [], []
-        for _ in range(REPEATS):
+        for _ in range(MAIN_PATH_REPEATS):
             tokens, stats, launches, iterations, prefill_s, decode_s = drive(
                 model, stamps, ids, num_latents, max_new, pm, **extra)
             expected = (1 + layers) * iterations
@@ -1646,7 +1671,7 @@ def main_path():
             tokens_per_s.append(batch * (max_new - 1) / decode_s)
         emit(phase="main_path", run=name, batch=batch, prompt=ids.shape[1], num_latents=num_latents,
              new_tokens=max_new, decode_iterations=iterations, launches_per_call=launches,
-             expected_launches=expected, stats=stats, repeats=REPEATS,
+             expected_launches=expected, stats=stats, repeats=MAIN_PATH_REPEATS,
              tokens_identical_across_repeats=all(torch.equal(n, news[0]) for n in news),
              prefill_ms=spread(prefill_ms), ms_per_decode_iteration=spread(ms_per_iteration),
              decode_tokens_per_s=spread(tokens_per_s))
@@ -3809,6 +3834,221 @@ def train_flagship(model):
     return counts
 
 
+# ------------------------------------------------------ phase 5c: telemetry
+TELEMETRY_REQUESTS = 16  # the stream's first 16 requests: two waves of 8 slots
+TELEMETRY_STEPS = 12  # (c): Trainer.fit's steps, logged every 4
+TELEMETRY_PROFILE = dict(profile_start_step=3, profile_steps=3)  # steps 4-6 traced
+# the warning torch.cuda.set_sync_debug_mode("warn") gives a synchronizing
+# call (its first use also warns that the mode is a prototype: not a sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _phase_table(summary, prefix):
+    """A recorder summary's phases under ``prefix``: count and mean ms."""
+    return {k: {"count": v["count"], "mean_ms": 1e3 * v["mean_s"], "p95_ms": 1e3 * v["p95_s"]}
+            for k, v in summary["phases"].items() if k.startswith(prefix)}
+
+
+def _telemetry_run(model, stream, telemetry, count_syncs):
+    """One paged_int4 engine run over ``stream``, stepped here so that the
+    ticks are counted; with ``count_syncs`` the run's host syncs are counted
+    under torch.cuda.set_sync_debug_mode("warn") (the engine is built
+    outside it). Returns the engine (closed), its handles, the ticks, the
+    syncs, the wall s and the B2-B4 counts."""
+    engine = ServingEngine(model, num_slots=8, telemetry=telemetry, **SERVING_MODES["paged_int4"][0])
+    torch.cuda.synchronize()
+    dk.launches = pk.launches = rk.launches = 0
+    syncs = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            handles = [engine.submit(p, config=c, seed=seed) for p, c, seed in stream]
+            ticks = 1
+            while engine.step():
+                ticks += 1
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    if count_syncs:
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    counts = {"B2": dk.launches, "B3": pk.launches, "B4": rk.launches}
+    engine.close()
+    return engine, handles, ticks, syncs, wall, counts
+
+
+def telemetry_serving(model, stream):
+    """Phase 5c (a) and (b): the engine with telemetry on and off in turns,
+    then a two-replica router with telemetry on. Returns the B2-B4 launches."""
+    cfg = model.config
+    layers = cfg.num_self_attention_layers
+    stream = stream[:TELEMETRY_REQUESTS]
+    totals = {"B2": 0, "B3": 0, "B4": 0}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="telemetry-") as root:
+        runs = []
+        # in turns, the syncs counted on the middle two
+        for i, (on, count_syncs) in enumerate(((False, False), (True, True), (False, True), (True, False))):
+            path = os.path.join(root, f"engine{i}.json") if on else None
+            engine, handles, ticks, syncs, wall, counts = _telemetry_run(model, stream, path if on else False,
+                                                                        count_syncs)
+            snap = engine.metrics.snapshot()
+            harvests = snap["decode_steps"]
+            expected = {"B2": harvests * layers, "B3": 0, "B4": harvests}
+            if counts != expected or engine.decode_compilations != 1 or engine.graph_replays != harvests:
+                raise AssertionError(f"telemetry (a) run {i}: launches {counts}, expected {expected}; "
+                                     f"{engine.decode_compilations} captures, {engine.graph_replays} replays")
+            if not all(h.ok and len(h.output_ids) == h.config.max_new_tokens for h in handles):
+                raise AssertionError(f"telemetry (a) run {i}: a request did not finish with its max_new_tokens")
+            for k in totals:
+                totals[k] += counts[k]
+            run = dict(on=on, ticks=ticks, harvests=harvests, syncs=syncs, wall_ms_per_tick=1e3 * wall / ticks,
+                       decode_ms_per_tick=1e3 * snap["decode_step_s"]["mean"],
+                       greedy=[h.result().tolist() for h in handles if not h.config.do_sample])
+            if on:
+                summary = engine.telemetry_summary()
+                trace = load_chrome_trace(path)
+                problems = validate_chrome_trace(trace)
+                begins = sorted(e["id"] for e in trace["traceEvents"] if e["ph"] == "b")
+                ends = sorted(e["id"] for e in trace["traceEvents"] if e["ph"] == "e")
+                ids = sorted(h.request_id for h in handles)
+                phases = summary["phases"]
+                run.update(problems=problems, spans_per_request=begins == ends == ids,
+                           tick_spans=phases["serving.tick"]["count"],
+                           sample_sync_spans=phases["serving.sample_sync"]["count"],
+                           compile=summary["compile"], trace_bytes=os.path.getsize(path),
+                           phases=_phase_table(summary, "serving."))
+                if (problems or begins != ids or ends != ids or run["tick_spans"] != ticks
+                        or run["sample_sync_spans"] != harvests):
+                    raise AssertionError(f"telemetry (a) run {i}: trace problems {problems[:3]}, one begin and "
+                                         f"end a request {run['spans_per_request']}, tick spans "
+                                         f"{run['tick_spans']} for {ticks} ticks, sample_sync spans "
+                                         f"{run['sample_sync_spans']} for {harvests} harvests")
+                if summary["compile"]["per_function"] != {"serving.decode_step": {"compilations": 1, "budget": 1}} \
+                        or summary["compile"]["unexpected"]:
+                    raise AssertionError(f"telemetry (a) run {i}: compile block {summary['compile']}")
+            runs.append(run)
+        identical = all(r["greedy"] == runs[0]["greedy"] for r in runs)
+        syncs = {r["on"]: r["syncs"] for r in runs if r["syncs"] is not None}
+        on_ms = [r["wall_ms_per_tick"] for r in runs if r["on"]]
+        off_ms = [r["wall_ms_per_tick"] for r in runs if not r["on"]]
+        emit(phase="telemetry", run="engine", mode="paged_int4", slots=8, requests=len(stream),
+             order=["off", "on (syncs counted)", "off (syncs counted)", "on"],
+             greedy_tokens_identical=identical, host_syncs={"on": syncs[True], "off": syncs[False]},
+             ms_per_tick_on=on_ms, ms_per_tick_off=off_ms,
+             decode_ms_per_tick_on=[r["decode_ms_per_tick"] for r in runs if r["on"]],
+             decode_ms_per_tick_off=[r["decode_ms_per_tick"] for r in runs if not r["on"]],
+             overhead_ms_per_tick=statistics.mean(on_ms) - statistics.mean(off_ms),
+             **{k: [r[k] for r in runs] for k in ("ticks", "harvests")},
+             tick_spans=runs[1]["tick_spans"], sample_sync_spans=runs[1]["sample_sync_spans"],
+             compile=runs[1]["compile"], trace_bytes=runs[1]["trace_bytes"], tick_phases=runs[-1]["phases"])
+        if not identical or syncs[True] != syncs[False] or not syncs[True]:
+            raise AssertionError(f"telemetry (a): greedy tokens identical {identical}, host syncs on / off "
+                                 f"{syncs[True]} / {syncs[False]}")
+
+        # (b) the router: one shared recorder, a namespace a replica
+        path = os.path.join(root, "router.json")
+        router = ServingRouter(model, num_replicas=2, num_slots=8, telemetry=path, **SERVING_MODES["paged_fp"][0])
+        torch.cuda.synchronize()
+        dk.launches = pk.launches = rk.launches = 0
+        handles = [router.submit(p, config=c, seed=seed) for p, c, seed in stream]
+        ticks, wall, first = drive_ticks(router.step, handles)
+        counts = {"B2": dk.launches, "B3": pk.launches, "B4": rk.launches}
+        _check_router_captures_and_launches("telemetry (b)", router, counts, pk, layers)
+        summary = router.telemetry_summary()
+        router.close()
+        trace = load_chrome_trace(path)
+        problems = validate_chrome_trace(trace)
+        phases = summary["phases"]
+        namespaces = sorted({k.split(".")[1] for k in phases if k.startswith("serving.r")})
+        report = summary["compile"]
+        emit(phase="telemetry", run="router", mode="paged_fp", replicas=2, requests=len(stream), ticks=ticks,
+             ms_per_tick=1e3 * wall / ticks, namespaces=namespaces, compile=report,
+             router_tick_spans=phases["router.tick"]["count"], trace_problems=problems[:5],
+             counters=summary["counters"], phases=_phase_table(summary, "router."))
+        if (problems or namespaces != ["r0", "r1"] or len(report["per_function"]) != 2
+                or any(v["compilations"] != 1 for v in report["per_function"].values()) or report["unexpected"]
+                or not all(h.ok for h in handles) or phases["router.tick"]["count"] != ticks):
+            raise AssertionError(f"telemetry (b): trace problems {problems[:3]}, namespaces {namespaces}, compile "
+                                 f"report {report}, all finished {all(h.ok for h in handles)}")
+        for k in totals:
+            totals[k] += counts[k]
+    emit(phase="telemetry", run="serving_seconds", seconds=time.perf_counter() - t_phase)
+    return totals
+
+
+def _profile_top_kernels(path, top=10):
+    """The device kernels of a torch.profiler Chrome trace, summed by name:
+    the ``top`` by device time (ms and count)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel" and isinstance(e.get("dur"), (int, float)):
+            ms, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return by_name, [{"kernel": k[:90], "ms": ms, "count": n} for k, (ms, n) in ranked[:top]]
+
+
+def telemetry_training(model, init):
+    """Phase 5c (c): Trainer.fit on the flagship from its seeded weights
+    ``init``, TELEMETRY_STEPS steps logged every 4, with telemetry and
+    profile_dir, then with both off. Returns the B1a/B1b launches."""
+    t_phase = time.perf_counter()
+    data = ResilientData(model.config)
+    fl.forward_launches = fl.backward_launches = 0
+    losses, summaries = {}, {}
+    with tempfile.TemporaryDirectory(prefix="telemetry-train-") as root:
+        prof = os.path.join(root, "profile")
+        for on in (True, False):
+            state, step, rec = _resilient_state(model, init)
+            cfg = TrainerConfig(max_steps=TELEMETRY_STEPS, log_every=4, eval_every=10**9, prefetch_depth=2,
+                                telemetry=on, profile_dir=prof if on else None,
+                                **TELEMETRY_PROFILE)
+            lines = []
+            trainer = Trainer(cfg, log_fn=lambda line: lines.append(json.loads(line)))
+            t0 = time.perf_counter()
+            trainer.fit(state, step, data.train_dataloader)
+            fit_s = time.perf_counter() - t0
+            losses[on] = _losses(rec)
+            summaries[on] = (trainer.telemetry_summary, fit_s, _step_ms(rec),
+                             [line for line in lines if "profile_trace" in line])
+            del state, step, rec
+        summary, fit_s, step_ms, profile_events = summaries[True]
+        files = sorted(os.listdir(prof))
+        by_name, top = _profile_top_kernels(os.path.join(prof, files[0])) if files else ({}, [])
+    counts = flash_counts()
+    layers = model.config.num_self_attention_layers
+    steps = 2 * TELEMETRY_STEPS
+    expected = {"B1a": (1 + layers) * steps + layers * steps, "B1b": (1 + layers) * steps}
+    names = set(by_name)
+    b1 = {"flash_fwd_mma_kernel": any("flash_fwd_mma_kernel" in n for n in names),
+          "flash_bwd_*": any("flash_bwd_" in n for n in names)}
+    phases = summary["phases"]
+    emit(phase="telemetry", run="train", steps=TELEMETRY_STEPS, losses=losses[True],
+         bit_identical=losses[True] == losses[False], step_dispatch_spans=phases["train.step_dispatch"]["count"],
+         log_sync_spans=phases["train.log_sync"]["count"], compile=summary["compile"], gauges=summary["gauges"],
+         step_phases=_phase_table(summary, "train."), profile_events=profile_events, profile_files=files,
+         profile_b1_kernels=b1, profile_top_kernels=top,
+         step_ms_on=spread(step_ms[1:]), step_ms_off=spread(summaries[False][2][1:]),
+         step_ms_on_each=step_ms, step_ms_off_each=summaries[False][2],
+         fit_s={"on": fit_s, "off": summaries[False][1]}, launches=counts,
+         seconds=time.perf_counter() - t_phase)
+    if (losses[True] != losses[False] or len(losses[True]) != TELEMETRY_STEPS
+            or phases["train.step_dispatch"]["count"] != TELEMETRY_STEPS or phases["train.log_sync"]["count"] != 3
+            or not all(b1.values()) or summary["compile"]["unexpected"] or len(files) != 1
+            or profile_events != [{"step": 6, "profile_trace": prof}] or counts != expected):
+        raise AssertionError(f"telemetry (c): losses identical {losses[True] == losses[False]}, step_dispatch "
+                             f"{phases['train.step_dispatch']['count']}, log_sync {phases['train.log_sync']['count']}, "
+                             f"B1 in the profile {b1}, unexpected {summary['compile']['unexpected']}, profile files "
+                             f"{files}, events {profile_events}, launches {counts} (expected {expected})")
+    return counts
+
+
 # ------------------------------------------- phase 6a: resilient training
 RESILIENT_STEPS = 12  # the uninterrupted run's steps: L
 RESILIENT_EVERY = 4  # checkpoint_every: saves at 4, 8, 12 and the final one
@@ -4964,14 +5204,17 @@ def main() -> int:
     router_launches, references, router_stats = serving_router(model, stream)
     process_launches = serving_router_process(model, stream, references[PROCESS_MODE], router_stats)
     fleet_launches = serving_router_fleet(model, stream, references)
+    telemetry_launches = telemetry_serving(model, stream)
     del model
     torch.cuda.empty_cache()
     weight_launches = weight_serving()
     for phase, counts in (("serving_journal", journal_launches), ("serving_recovery", recovery_launches),
                           ("serving_router", router_launches), ("serving_router_process", process_launches),
-                          ("serving_router_fleet", fleet_launches), ("weight_serving", weight_launches)):
+                          ("serving_router_fleet", fleet_launches), ("telemetry", telemetry_launches),
+                          ("weight_serving", weight_launches)):
         if not counts["B2"] or not counts["B3"] or (phase in ("serving_journal", "serving_router",
-                                                              "serving_router_fleet") and not counts["B4"]):
+                                                              "serving_router_fleet", "telemetry")
+                                                     and not counts["B4"]):
             raise AssertionError(f"a kernel of the {phase} path was never launched: {counts}")
         for k, v in counts.items():
             launches[k] += v
@@ -4989,10 +5232,11 @@ def main() -> int:
     for k, v in train_resilient_finish(resilient).items():
         launches[k] = launches.get(k, 0) + v
     flagship.load_state_dict(init)
-    del init
     for k, v in train_flagship(flagship).items():
         launches[k] = launches.get(k, 0) + v
-    del flagship
+    for k, v in telemetry_training(flagship, init).items():
+        launches[k] += v
+    del flagship, init
     for k, v in train_30m().items():
         launches[k] = launches.get(k, 0) + v
     if not (launches["B1a"] and launches["B1b"]):

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -30,6 +30,10 @@ NVCC_FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# called as fn(name, seconds, built) each time library() loads a source for the
+# first time in this process: seconds of its build (when nvcc ran: built) and
+# load. The compile watchdog (obs/watchdog.py) counts these loads.
+_load_listeners: List[Callable[[str, float, bool], None]] = []
 # ptxas -v lines kept in build()'s report: the kernel's name, its registers, its
 # spills, and any warning (a setmaxnreg it ignored, wgmma it serialised)
 _PTXAS_WORDS = ("Compiling entry function", "Used", "spill", "warning", "Performance")
@@ -88,9 +92,20 @@ def build(names: Optional[List[str]] = None) -> Dict[str, dict]:
     return report
 
 
+def add_load_listener(fn: Callable[[str, float, bool], None]) -> None:
+    """Call ``fn(name, seconds, built)`` at each first load of a library in
+    this process (once per listener, however often it is added)."""
+    if fn not in _load_listeners:
+        _load_listeners.append(fn)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _libs:
-        build([name])
+        t0 = time.perf_counter()
+        built = build([name])[name]["seconds"] is not None
         _libs[name] = ctypes.CDLL(str(_target(name)))
+        seconds = time.perf_counter() - t0
+        for fn in list(_load_listeners):
+            fn(name, seconds, built)
     return _libs[name]

@@ -127,9 +127,20 @@ The router (``serving/router.py``) runs several engines as replicas: it
 calls ``step_dispatch``/``step_harvest``, ``evict_request(status=,
 queued_only=)``, ``discard_pending_harvest`` and ``_recover_attach``.
 
-Not in this slice (ROADMAP A): telemetry (``obs/*``), the router's process
-replicas (transport and worker), and the JAX package's kill-switch
-environment variables.
+  * Telemetry (``obs/``). ``telemetry`` (True, a trace path, a recorder, or
+    None for the ``PERCEIVER_IO_TORCH_TELEMETRY`` environment variable)
+    records the JAX engine's phase spans under ``obs_ns`` (``{obs_ns}.tick``
+    from dispatch to harvest, ``.admit``, ``.prefill_dispatch`` and
+    ``.install`` of a classic admission, ``.decode_dispatch``,
+    ``.sample_sync`` around the tick's one sync, ``.evict``), its counters
+    and gauges, one async span a request (category ``request.e{n}``, one an
+    engine) from submit to its terminal status, and a compile watchdog whose
+    ``{obs_ns}.decode_step`` reads the decode graph's captures (budget 1).
+    Spans time host calls only: nothing reads the device for them, and no
+    recorder call runs inside the decode step or its capture.
+
+Not in this slice (ROADMAP A): the JAX package's kill-switch environment
+variables.
 """
 
 from __future__ import annotations
@@ -137,6 +148,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
+import weakref
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Dict, List, Optional, Sequence
@@ -149,6 +161,8 @@ import perceiver_io_torch.ops.paged_decode_kernel as pk
 import perceiver_io_torch.ops.ragged_paged_kernel as rk
 from perceiver_io_torch.generation.generate import GenerationConfig
 from perceiver_io_torch.generation.sampling import process_logits_batched, sample_token_batched
+from perceiver_io_torch.obs.core import resolve_recorder
+from perceiver_io_torch.obs.watchdog import CompileWatchdog
 from perceiver_io_torch.ops.paged_decode_kernel import KV_QUANT_MODES
 from perceiver_io_torch.reliability import faults
 from perceiver_io_torch.reliability.preemption import install_preemption_handler, restore_preemption_handler
@@ -165,6 +179,24 @@ from perceiver_io_torch.serving.scheduler import SlotScheduler
 _KERNELS = {"B2": dk, "B3": pk, "B4": rk}
 # latent start of an idle chunk lane: beyond every position, so no row is a latent
 _IDLE_LATENT_START = 2**30
+# numbers each engine's async-span category: request ids restart at 0 in every
+# engine, so engines sharing one recorder must not collide on (cat, id)
+_ENGINE_IDS = itertools.count()
+
+
+class _CaptureProbe:
+    """The decode graph's captures behind the compile watchdog's
+    ``_cache_size()`` probe, read through a weak reference: the watchdog
+    keeps no engine alive."""
+
+    __slots__ = ("_engine",)
+
+    def __init__(self, engine: "ServingEngine"):
+        self._engine = weakref.ref(engine)
+
+    def _cache_size(self) -> int:
+        engine = self._engine()
+        return 0 if engine is None else engine.decode_compilations
 
 
 @dataclass
@@ -475,7 +507,9 @@ class ServingEngine:
     ``journal`` (a directory, or a ``RequestJournal`` for another fsync or
     segment policy) makes every accepted request durable, and ``recover``
     rebuilds an engine from it; ``weight_dtype`` ("bf16" or "int8") serves
-    the parameters cast or quantized.
+    the parameters cast or quantized; ``telemetry`` (see ``obs/core.py``
+    for its encoding) records phase spans, counters and request spans
+    under the names prefix ``obs_ns``, with a compile watchdog.
 
     With ``weight_dtype`` set the engine takes the model over: it transforms
     the model's own parameters in place (see ``serving/quant.py``), the
@@ -489,7 +523,8 @@ class ServingEngine:
                  max_prefill_slots: Optional[int] = None, cuda_graph: bool = True,
                  default_deadline_s: Optional[float] = None, priority_aging_ticks: Optional[int] = None,
                  max_preemptions: int = 2, handle_preemption: bool = False, metrics_jsonl: Optional[str] = None,
-                 journal=None, weight_dtype: Optional[str] = None, _served=None):
+                 journal=None, weight_dtype: Optional[str] = None, telemetry=None, obs_ns: str = "serving",
+                 _served=None):
         if weight_dtype is not None and weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES} or None, got {weight_dtype!r}")
         self.model = model
@@ -517,6 +552,21 @@ class ServingEngine:
         self.metrics = EngineMetrics(num_slots=num_slots, jsonl_path=metrics_jsonl)
         if weight_dtype is not None:
             self.metrics.set_weight_serving(weight_dtype, self._param_bytes, self._param_bytes_fp)
+        # telemetry: the JAX engine's span names under obs_ns (a router's
+        # replicas share one recorder as "serving.r{i}"), off by default (the
+        # shared no-op recorder)
+        self._obs_ns = obs_ns
+        self._span_tick = f"{obs_ns}.tick"
+        self._span_admit = f"{obs_ns}.admit"
+        self._span_prefill = f"{obs_ns}.prefill_dispatch"
+        self._span_install = f"{obs_ns}.install"
+        self._span_decode_dispatch = f"{obs_ns}.decode_dispatch"
+        self._span_sample_sync = f"{obs_ns}.sample_sync"
+        self._span_evict = f"{obs_ns}.evict"
+        self._obs, self._owns_telemetry = resolve_recorder(telemetry)
+        self._obs_on = self._obs.enabled
+        self._span_cat = f"request.e{next(_ENGINE_IDS)}"
+        self.watchdog: Optional[CompileWatchdog] = CompileWatchdog(recorder=self._obs) if self._obs_on else None
         # the write-ahead journal; each tick's changes are buffered here and
         # land as one write at the end of the harvest
         self.journal: Optional[RequestJournal] = None
@@ -650,6 +700,11 @@ class ServingEngine:
         self.graph_pool_bytes = 0
         if cuda_graph and self.device.type == "cuda":
             self._capture_decode_graph()
+        if self.watchdog is not None:
+            # the JAX engine's tick-program budget: one capture ever. Prefill,
+            # install, release and quarantine run eagerly and have no
+            # counterpart to watch (ROADMAP C18)
+            self.watchdog.watch(f"{obs_ns}.decode_step", _CaptureProbe(self), budget=1)
         # SIGTERM/SIGINT graceful drain: the handler only sets a flag; the
         # next tick closes admission and rejects the backlog, running work
         # finishes, and close() runs once the engine is empty
@@ -851,6 +906,8 @@ class ServingEngine:
         if self._alloc_blocked_id != request.request_id:
             self._alloc_blocked_id = request.request_id
             self.metrics.record_alloc_failure(request.request_id, need, self._pool.free_pages)
+            if self._obs_on:
+                self._obs.counter_inc(f"{self._obs_ns}.alloc_failures")
         return False
 
     def _shared_pages_in_use(self) -> int:
@@ -912,6 +969,10 @@ class ServingEngine:
         if self._prefix_cache is not None and prompt.size + config.max_new_tokens <= self._window:
             request.page_keys = page_keys_for_prompt(prompt.tolist(), self.kv_page_size, self._latents)
         self.metrics.record_submit(request.request_id, int(prompt.size), priority=request.priority)
+        if self._obs_on:
+            # the request's lifecycle span, keyed by the id its metric events carry
+            self._obs.async_begin(self._span_cat, request.request_id, prompt_len=int(prompt.size))
+            self._obs.async_instant(self._span_cat, request.request_id, "queued")
         if self._draining and not request.is_resume:
             return self._reject(request, "draining")
         if prompt.size > self._window:
@@ -947,6 +1008,9 @@ class ServingEngine:
         # a drain's rejection of an accepted queued request is journaled
         self._journal_note_terminal(request, RequestStatus.REJECTED, reason)
         self.metrics.record_reject(request.request_id, reason)
+        if self._obs_on:
+            self._obs.counter_inc(f"{self._obs_ns}.rejected")
+            self._obs.async_end(self._span_cat, request.request_id, status="rejected", reason=reason)
         return request
 
     # ----------------------------------------------------------------- admit
@@ -983,14 +1047,16 @@ class ServingEngine:
             table_row = torch.zeros(self._pages_per_slot, dtype=torch.int32)
             table_row[:pages] = torch.tensor(page_ids, dtype=torch.int32)
         self._tick_programs += 2  # the classic path: prefill, install
-        ids, pad_mask = self._bucket_prompt(request, bucket)
-        cache = self.model.init_cache(batch_size=1, max_seq_len=bucket)
-        logits, cache = self.model.prefill(ids, bucket - self._latents, cache, pad_mask=pad_mask)
-        if self.paged:
-            self._cache.install_slot(slot, table_row.to(self.device), cache)
-        else:
-            self._cache.write_slot(slot, cache)
-        self._state.install(slot, logits[:, -1], request.config, self._generator(request))
+        with self._obs.span(self._span_prefill):
+            ids, pad_mask = self._bucket_prompt(request, bucket)
+            cache = self.model.init_cache(batch_size=1, max_seq_len=bucket)
+            logits, cache = self.model.prefill(ids, bucket - self._latents, cache, pad_mask=pad_mask)
+        with self._obs.span(self._span_install):
+            if self.paged:
+                self._cache.install_slot(slot, table_row.to(self.device), cache)
+            else:
+                self._cache.write_slot(slot, cache)
+            self._state.install(slot, logits[:, -1], request.config, self._generator(request))
         if self._prefix_cache is not None and request.page_keys:
             # the page-aligned install makes this prompt's pages cache-grade
             self._prefix_cache.insert(request.page_keys, [int(p) for p in table_row[:len(request.page_keys)]])
@@ -1009,6 +1075,8 @@ class ServingEngine:
                                   bucket=bucket, pages=pages, priority=request.priority, preempted_replay=resumed)
         if self.paged:
             self.metrics.set_page_pool(self._pool.num_pages - self._pool.reserved, self._pool.pages_in_use)
+        if self._obs_on:
+            self._obs.async_instant(self._span_cat, request.request_id, "prefill", slot=slot, bucket=bucket)
 
     def _admit_split(self, slot: int, request: ServedRequest, bucket: int, shared_run: List[int],
                      t0: float) -> None:
@@ -1046,6 +1114,8 @@ class ServingEngine:
             self._journal_admits.append(request.request_id)
         if shared:
             self.metrics.record_prefix_hit(request.request_id, shared, shared_tokens)
+            if self._obs_on:
+                self._obs.counter_inc(f"{self._obs_ns}.prefix_hits")
         self.metrics.set_page_pool(self._pool.num_pages - self._pool.reserved, self._pool.pages_in_use)
         # the first chunk goes on this tick; unchunked, the whole tail and the finish
         self._advance_prefill(slot, task)
@@ -1101,6 +1171,9 @@ class ServingEngine:
                                   shared_pages=task.shared_pages or None)
         if self._prefix_cache is not None:
             self.metrics.set_prefix_cache(self._prefix_cache.stats(), self._shared_pages_in_use())
+        if self._obs_on:
+            self._obs.async_instant(self._span_cat, request.request_id, "prefill", slot=slot, bucket=task.bucket,
+                                    chunks=task.chunks, shared_pages=task.shared_pages)
 
     def _register_replay(self, slot: int, request: ServedRequest) -> None:
         """A request with unreplayed ``replay_ids`` decodes them forced."""
@@ -1164,6 +1237,9 @@ class ServingEngine:
         self.finished.append(request)
         if journal_terminal:
             self._journal_note_terminal(request, status, reason)
+        if self._obs_on:
+            self._obs.async_end(self._span_cat, request.request_id, status=status.value, reason=reason,
+                                new_tokens=len(request.output_ids))
 
     def evict_request(self, request_id: int, reason: str = "cancelled", status: RequestStatus = RequestStatus.FAILED,
                       queued_only: bool = False, journal_terminal: bool = True) -> Optional[ServedRequest]:
@@ -1283,6 +1359,10 @@ class ServingEngine:
         self.metrics.record_preempt(request.request_id, slot, preempted_by=preemptor.request_id,
                                     pages_freed=pages_freed, emitted_tokens=len(request.output_ids),
                                     priority=request.priority)
+        if self._obs_on:
+            self._obs.counter_inc(f"{self._obs_ns}.preemptions")
+            self._obs.async_instant(self._span_cat, request.request_id, "preempted", by=preemptor.request_id,
+                                    emitted=len(request.output_ids))
 
     def _preempt_for_blocked_head(self, can_admit) -> None:
         """Admission's second pass: while the admission-order head is blocked
@@ -1396,6 +1476,8 @@ class ServingEngine:
         self.metrics.set_journal(self.journal.stats())
         self.metrics.record_recovery(sessions=len(handles), replayed_tokens=replayed, truncated=state.truncated,
                                      dropped_records=state.dropped_records, generation=state.generation)
+        if self._obs_on:
+            self._obs.counter_inc(f"{self._obs_ns}.sessions_recovered", len(handles))
         return {"sessions": len(handles), "replayed_tokens": replayed,
                 "in_flight": sum(1 for s in kept if s.admitted), "deduped": deduped, "truncated": state.truncated,
                 "dropped_records": state.dropped_records, "records": state.records,
@@ -1569,6 +1651,20 @@ class ServingEngine:
             # the signal's drain starts here, at a tick boundary
             self.preempted = True
             self._begin_drain()
+        # the tick span brackets both halves (a router interleaves its
+        # replicas' halves); every way out of a half balances it
+        self._obs.span_begin(self._span_tick)
+        try:
+            dispatched = self._dispatch_half()
+        except BaseException:
+            self._obs.span_end(self._span_tick)
+            raise
+        if not dispatched:
+            self._obs.span_end(self._span_tick)
+        return dispatched
+
+    def _dispatch_half(self) -> bool:
+        """``step_dispatch``'s work inside the tick span."""
         self._tick_programs = self._tick_chunk_items = self._tick_finish_items = 0
         self._tick_build_s = 0.0
         self._tick_resets, self._tick_chunks, self._tick_finishes = [], [], []
@@ -1588,19 +1684,27 @@ class ServingEngine:
             can_admit = self._can_admit_paged if self.paged else None
             # a chunked engine keeps at most max_prefill_slots prompts in flight
             limit = max(self.max_prefill_slots - len(self._prefilling), 0) if self.chunked else None
-            for slot, request in self.scheduler.pop_admissible(can_admit, limit=limit):
-                self._admit(slot, request)
-            if not self._draining:
-                self._preempt_for_blocked_head(can_admit)
+            with self._obs.span(self._span_admit):
+                for slot, request in self.scheduler.pop_admissible(can_admit, limit=limit):
+                    self._admit(slot, request)
+                if not self._draining:
+                    self._preempt_for_blocked_head(can_admit)
         self._maybe_inject_nan()
+        occupied = list(self.scheduler.occupied())
+        if self._obs_on:
+            self._obs.gauge_set(f"{self._obs_ns}.active_slots", len(occupied))
+            self._obs.gauge_set(f"{self._obs_ns}.queue_depth", self.scheduler.queue_depth)
+            if self.paged:
+                self._obs.gauge_set(f"{self._obs_ns}.pages_in_use", self._pool.pages_in_use)
         # slots mid-admission hold no decode state yet: they are not harvested
-        occupied = [(s, r) for s, r in self.scheduler.occupied() if s not in self._prefilling]
+        occupied = [(s, r) for s, r in occupied if s not in self._prefilling]
         if not occupied and not (self._tick_chunks or self._tick_finishes or self._tick_resets):
             if self._tick_programs:
                 self.metrics.record_tick_dispatch(self._tick_programs, 0, 0, 0, 0.0)
             return False
         t0 = time.perf_counter()
-        out = self._dispatch_tick(bool(occupied))
+        with self._obs.span(self._span_decode_dispatch):
+            out = self._dispatch_tick(bool(occupied))
         self.metrics.record_tick_dispatch(self._tick_programs, self._tick_chunk_items, self._tick_finish_items,
                                           len(occupied), self._tick_build_s)
         if not occupied:
@@ -1621,16 +1725,32 @@ class ServingEngine:
             self._journal_flush()
             self._maybe_flush_preempted()
             return self.scheduler.has_work
-        return self._harvest(pending)
+        try:
+            self._harvest(pending)
+        except BaseException:
+            self._obs.span_end(self._span_tick)
+            raise
+        self._obs.span_end(self._span_tick)
+        self._journal_flush()  # the tick's one journal write
+        self._maybe_flush_preempted()
+        return self.scheduler.has_work
 
-    def _harvest(self, pending) -> bool:
+    def _harvest(self, pending) -> None:
         occupied, out, t0 = pending
-        tok, finite = out.tolist()  # the tick's one device sync
+        with self._obs.span(self._span_sample_sync):
+            tok, finite = out.tolist()  # the tick's one device sync
         now = time.perf_counter()
         # useful tokens only: a quarantined slot's sample is discarded, and a
         # replayed token was delivered once already
         useful = sum(1 for slot, _ in occupied if finite[slot] and slot not in self._replay_slots)
         self.metrics.record_decode_step(len(occupied), now - t0, tokens=useful)
+        with self._obs.span(self._span_evict):
+            self._evict_harvested(occupied, tok, finite, now)
+        if self.watchdog is not None:
+            # one int read a watch: a capture past its budget is flagged, never raised
+            self.watchdog.check()
+
+    def _evict_harvested(self, occupied, tok, finite, now: float) -> None:
         for slot, request in occupied:
             if self.scheduler.occupant(slot) is not request:
                 continue  # left its slot between dispatch and harvest
@@ -1661,9 +1781,6 @@ class ServingEngine:
                 self._evict(slot, request, "eos")
             elif len(request.output_ids) >= cfg.max_new_tokens:
                 self._evict(slot, request, "length")
-        self._journal_flush()  # the tick's one journal write
-        self._maybe_flush_preempted()
-        return self.scheduler.has_work
 
     def discard_pending_harvest(self) -> None:
         """Drop a dispatched, unharvested decode without syncing it: its
@@ -1678,6 +1795,7 @@ class ServingEngine:
         pending, self._pending_harvest = self._pending_harvest, None
         if pending is None:
             return
+        self._obs.span_end(self._span_tick)  # the dispatch's tick span, balanced
         for slot, request in pending[0]:
             if self.scheduler.occupant(slot) is request:
                 self._requeue(slot, request)
@@ -1726,13 +1844,36 @@ class ServingEngine:
             self.metrics.write_snapshot()
             self.close()
 
+    # ------------------------------------------------------------- telemetry
+    @property
+    def telemetry(self):
+        """The engine's recorder (the shared no-op recorder when off), bound
+        at construction with the watchdog."""
+        return self._obs
+
+    def telemetry_summary(self) -> Optional[dict]:
+        """The recorder's phases, counters and gauges with the watchdog's
+        ``compile`` block when telemetry is on, else None."""
+        if not self._obs_on:
+            return None
+        out = self._obs.summary()
+        if self.watchdog is not None:
+            out["compile"] = self.watchdog.summary()
+        return out
+
     def close(self) -> None:
         """Restore the signal handlers ``handle_preemption`` replaced, land
-        the buffered journal records and close the journal (fsynced) and the
-        metrics stream. Idempotent."""
+        the buffered journal records and close the journal (fsynced), the
+        metrics stream, the watchdog and a recorder the engine made from its
+        knob (which writes its trace when it has a path; a recorder passed
+        in stays open). Idempotent."""
         restore_preemption_handler(self._preempt_handler, self._preempt_previous)
         self._preempt_handler = None
         if self.journal is not None:
             self._journal_flush()
             self.journal.close()
         self.metrics.close()
+        if self.watchdog is not None:
+            self.watchdog.close()
+        if self._owns_telemetry:
+            self._obs.close()

@@ -114,10 +114,18 @@ counts, never by a clock):
     row: up revives the lowest retired replica or adds one, down retires
     the highest one through the recycle's drain.
 
-Not in this slice (ROADMAP A2.5): telemetry; its knob raises
-``NotImplementedError``. The JAX package's kill switches are TPU rollback
-levers and are not ported (C11, C15): the fleet operations are always on,
-and ``replica_mode="process"`` always means worker processes.
+Telemetry (``obs/``): ``telemetry`` (the engine's encoding) resolves one
+recorder that the router and every in-process replica share, each replica's
+engine under the namespace ``serving.r{i}`` (the first build, a recycle, a
+flip and a scale-up alike); the router records ``router.tick``, one
+``router.request`` async span a request with its ``dispatch``,
+``failover`` and ``migrate`` milestones, and the ``router.*`` counters and
+instants of the JAX router. Worker processes run telemetry-off, as the JAX
+package's do. ``telemetry_summary()`` merges the replicas' compile reports.
+
+The JAX package's kill switches are TPU rollback levers and are not ported
+(C11, C15): the fleet operations are always on, and
+``replica_mode="process"`` always means worker processes.
 """
 
 from __future__ import annotations
@@ -137,6 +145,7 @@ import numpy as np
 import torch
 
 from perceiver_io_torch.generation.generate import GenerationConfig
+from perceiver_io_torch.obs.core import resolve_recorder
 from perceiver_io_torch.reliability import faults
 from perceiver_io_torch.reliability.preemption import install_preemption_handler, restore_preemption_handler
 from perceiver_io_torch.reliability.retry import RetryPolicy
@@ -320,7 +329,8 @@ class ServingRouter:
     ``breaker_cooldown_ticks``, ``breaker_max_cooldown_ticks``; shedding:
     ``shed_infeasible``, ``shed_min_samples``; autoscaling: ``autoscale``
     (a dict of the knobs in the module docstring, or None for a fixed
-    fleet).
+    fleet); ``telemetry``: one recorder for the router and its in-process
+    replicas (see the module docstring).
 
     In-process replicas share the model's parameters (a deployed version's
     replicas share a model built for it), so the router never calls
@@ -344,8 +354,6 @@ class ServingRouter:
                  replica_mode: str = "inproc", transport: Optional[Dict] = None, _from_recovery: bool = False):
         if replica_mode not in ("inproc", "process"):
             raise ValueError(f"replica_mode must be 'inproc' or 'process', got {replica_mode!r}")
-        if telemetry:
-            raise NotImplementedError("ServingRouter options not ported yet: telemetry (A2.5, telemetry (obs/))")
         if num_replicas < 1:
             raise ValueError(f"num_replicas must be >= 1, got {num_replicas}")
         if max_failovers < 0:
@@ -403,6 +411,10 @@ class ServingRouter:
                                            max_delay_s=float(max(breaker_max_cooldown_ticks,
                                                                  breaker_cooldown_ticks, 1)), jitter=0.0)
         self._breaker_rng = random.Random(0)
+        # one shared recorder for the router and every in-process replica
+        # (each engine under its own span namespace and request category)
+        self._obs, self._owns_telemetry = resolve_recorder(telemetry)
+        self._obs_on = self._obs.enabled
         self._engine_cfg = dict(num_slots=num_slots, prefill_buckets=prefill_buckets, max_queue_depth=max_queue_depth,
                                 kv_page_size=kv_page_size, num_kv_pages=num_kv_pages,
                                 prefill_chunk_tokens=prefill_chunk_tokens, prefix_cache=prefix_cache,
@@ -504,6 +516,7 @@ class ServingRouter:
                                 **self._transport_cfg, **self._engine_cfg)
         record = self._versions[version]
         engine = ServingEngine(self._version_model(version), metrics_jsonl=metrics_jsonl, journal=journal_path,
+                               telemetry=self._obs if self._obs_on else False, obs_ns=f"serving.r{rid}",
                                _served=record.served, **self._engine_cfg)
         if record.served is None:
             record.served = (engine.params, engine._param_bytes, engine._param_bytes_fp)
@@ -632,6 +645,9 @@ class ServingRouter:
                 router.metrics.record_submit(routed.request_id, int(handle.prompt_ids.size),
                                              priority=routed.priority)
                 router.metrics.record_dispatch(routed.request_id, r.rid, load=r.engine.load)
+                if router._obs_on:
+                    router._obs.async_begin("router.request", routed.request_id,
+                                            prompt_len=int(handle.prompt_ids.size))
                 handles.append(routed)
             per_replica[f"r{r.rid}"] = info
         # the router journal's parked submits: their only durable copy. One
@@ -665,6 +681,9 @@ class ServingRouter:
                     router._deadlines_seen = True
                 router.metrics.record_submit(routed.request_id, int(routed.prompt_ids.size),
                                              priority=routed.priority, version=routed.version)
+                if router._obs_on:
+                    router._obs.async_begin("router.request", routed.request_id,
+                                            prompt_len=int(routed.prompt_ids.size))
                 router._pending.append(routed)
                 parked.append(routed)
                 mirror.append((routed.request_id, JournalSession(
@@ -716,6 +735,8 @@ class ServingRouter:
             self._deadlines_seen = True
         self.metrics.record_submit(routed.request_id, int(prompt.size), priority=routed.priority,
                                    version=routed.version)
+        if self._obs_on:
+            self._obs.async_begin("router.request", routed.request_id, prompt_len=int(prompt.size))
         if self._draining:
             return self._refuse(routed, "draining")
         if prompt.size > self._window:
@@ -724,6 +745,8 @@ class ServingRouter:
             est = self._estimate_completion_s(config.max_new_tokens)
             if est is not None and est > routed.deadline_s:
                 self.metrics.record_shed(routed.request_id, routed.deadline_s, est)
+                if self._obs_on:
+                    self._obs.counter_inc("router.shed_infeasible")
                 return self._refuse(routed, "shed_infeasible")
         self._dispatch(routed)
         return routed
@@ -797,6 +820,9 @@ class ServingRouter:
         self._journal_note_moved(routed, status=note[0], reason=note[1])
         self._router_journal_close(routed, "moved", "dispatched")
         self.metrics.record_dispatch(routed.request_id, r.rid, load=load)
+        if self._obs_on:
+            self._obs.async_instant("router.request", routed.request_id, "dispatch", replica=r.rid,
+                                    failover_n=routed.failovers)
 
     def _dispatch(self, routed: RoutedRequest, requeue: bool = False, exclude_rid: Optional[int] = None) -> bool:
         """Place one request, fresh or a failover's continuation, on the least
@@ -1021,6 +1047,9 @@ class ServingRouter:
             if routed.replica == dst:  # not resolved complete on the way
                 self.metrics.record_migration(routed.request_id, src if src is not None else -1, dst,
                                               emitted_tokens=len(routed._salvaged))
+                if self._obs_on:
+                    self._obs.counter_inc("router.migrations")
+                    self._obs.async_instant("router.request", routed.request_id, "migrate", src=src, dst=dst)
             return True
         # refused: accepted work goes to any replica of its version, else
         # parks at the front (it is older than anything parked behind it)
@@ -1067,6 +1096,8 @@ class ServingRouter:
             return False
         if not self.restart_in_progress:
             self._restart_queue = [r.rid for r in self.replicas if not r.retired]
+            if self._obs_on:
+                self._obs.counter_inc("router.rolling_restarts")
         return True
 
     def rolling_restart(self, max_steps: Optional[int] = None) -> bool:
@@ -1120,6 +1151,10 @@ class ServingRouter:
         self._reset_health(r)
         self.metrics.record_recycle(r.rid, sessions_moved=self._recycle_moved, leftover_sessions=leftovers,
                                     tick=self._tick)
+        if self._obs_on:
+            self._obs.counter_inc("router.recycles")
+            self._obs.instant("router.recycle", replica=r.rid, sessions_moved=self._recycle_moved,
+                              leftovers=leftovers)
 
     def _reset_health(self, r: _Replica) -> None:
         """A fresh engine's clean slate: breaker CLOSED (set here without a
@@ -1201,6 +1236,9 @@ class ServingRouter:
             r.target_version = version if r.rid in targets else base
         self.metrics.record_deploy(version, float(fraction), targets)
         self.metrics.set_fleet_gauges(len(active), self.restart_in_progress, self._primary_version)
+        if self._obs_on:
+            self._obs.counter_inc("router.deploys")
+            self._obs.instant("router.deploy", version=version, fraction=float(fraction))
         return version
 
     def rollback(self) -> bool:
@@ -1218,6 +1256,9 @@ class ServingRouter:
                 r.target_version = base
         self._prune_versions()
         self.metrics.record_rollback(version, base)
+        if self._obs_on:
+            self._obs.counter_inc("router.rollbacks")
+            self._obs.instant("router.rollback", from_version=version, to_version=base)
         return True
 
     def _prune_versions(self) -> None:
@@ -1265,6 +1306,8 @@ class ServingRouter:
                 # (a journaled fleet respawns a dead one), and the flip waits
                 self._on_tick_failure(r, exc)
                 continue
+            if self._obs_on:
+                self._obs.instant("router.version_flip", replica=r.rid, version=r.version)
             # the version it left may have no user now: free its model
             self._prune_versions()
         if self._rollout is not None and self._rollout["fraction"] >= 1.0:
@@ -1276,6 +1319,8 @@ class ServingRouter:
                 self._rollout = None
                 self._prune_versions()
                 self.metrics.set_fleet_gauges(len(active), self.restart_in_progress, v)
+                if self._obs_on:
+                    self._obs.instant("router.version_promoted", version=v)
 
     # ------------------------------------------------------------- autoscale
     def _fleet_load(self) -> int:
@@ -1333,6 +1378,8 @@ class ServingRouter:
         if info:
             self._adopt_recovered(r, info)
         self.metrics.record_autoscale("up", r.rid, active=len(self._active_replicas()), load=load, tick=self._tick)
+        if self._obs_on:
+            self._obs.counter_inc("router.scale_ups")
 
     def _scale_down(self, load: int) -> None:
         """Retire the highest replica whose retirement strands nothing (its
@@ -1351,6 +1398,8 @@ class ServingRouter:
                     continue
             self.metrics.record_autoscale("down", r.rid, active=len(self._active_replicas()) - 1, load=load,
                                           tick=self._tick)
+            if self._obs_on:
+                self._obs.counter_inc("router.scale_downs")
             self._start_recycle(r, mode="retire")
             return
 
@@ -1377,6 +1426,9 @@ class ServingRouter:
     def _transition(self, r: _Replica, new: str) -> None:
         old, r.breaker = r.breaker, new
         self.metrics.record_breaker(r.rid, old, new, self._tick)
+        if self._obs_on:
+            self._obs.counter_inc(f"router.breaker.{old}->{new}")
+            self._obs.instant("router.breaker", replica=r.rid, transition=f"{old}->{new}")
 
     def _open_breaker(self, r: _Replica, cause: str) -> None:
         """Take a replica out of service with the next cooldown on the
@@ -1530,6 +1582,9 @@ class ServingRouter:
                     self._deadlines_seen = True
                 self.metrics.record_submit(routed.request_id, int(handle.prompt_ids.size), priority=routed.priority,
                                            version=routed.version)
+                if self._obs_on:
+                    self._obs.async_begin("router.request", routed.request_id,
+                                          prompt_len=int(handle.prompt_ids.size))
             routed._engine_handle = handle
             routed._accepted = True
             # accepted work, which a later drain keeps: through the engine's
@@ -1613,6 +1668,9 @@ class ServingRouter:
             self._transition(r, BREAKER_CLOSED)
         self._reset_health(r)
         self.metrics.record_respawn(r.rid, sessions=recovered, tick=self._tick)
+        if self._obs_on:
+            self._obs.counter_inc("router.worker_respawns")
+            self._obs.instant("router.respawn", replica=r.rid, sessions=recovered)
         return True
 
     def _swap_in_empty_worker(self, r: _Replica) -> bool:
@@ -1659,6 +1717,10 @@ class ServingRouter:
             routed.failovers += 1
             self.metrics.record_failover(routed.request_id, r.rid, emitted_tokens=len(routed._salvaged),
                                          failover_n=routed.failovers)
+            if self._obs_on:
+                self._obs.counter_inc("router.failovers")
+                self._obs.async_instant("router.request", routed.request_id, "failover", from_replica=r.rid,
+                                        emitted=len(routed._salvaged))
             if routed.failovers > self.max_failovers:
                 self._resolve(routed, RequestStatus.FAILED, "max_failovers")
                 continue
@@ -1699,6 +1761,11 @@ class ServingRouter:
         self.finished.append(routed)
         self.metrics.record_finish(routed.request_id, status.value, reason, new_tokens=len(routed.output_ids),
                                    failovers=routed.failovers, version=routed.version)
+        if self._obs_on:
+            if status is RequestStatus.REJECTED:
+                self._obs.counter_inc("router.rejected")
+            self._obs.async_end("router.request", routed.request_id, status=status.value, reason=reason,
+                                new_tokens=len(routed.output_ids), failovers=routed.failovers)
 
     # ------------------------------------------------------------------- tick
     @property
@@ -1724,6 +1791,14 @@ class ServingRouter:
             self.preempted = True
             self._begin_drain()
         self._tick += 1
+        with self._obs.span("router.tick"):
+            self._tick_replicas()
+        has_work = self.has_work
+        self._maybe_flush_preempted(has_work)
+        return has_work
+
+    def _tick_replicas(self) -> None:
+        """``step()``'s work inside the ``router.tick`` span."""
         if self._deadlines_seen:
             self._expire_pending(time.perf_counter())
         self._promote_breakers()
@@ -1756,9 +1831,9 @@ class ServingRouter:
                 continue
             self._harvest_finished(r)
             self._on_tick_success(r, r._own_tick_s)
-        has_work = self.has_work
-        self._maybe_flush_preempted(has_work)
-        return has_work
+        if self._obs_on:
+            self._obs.gauge_set("router.pending", len(self._pending))
+            self._obs.gauge_set("router.replicas_closed", sum(1 for r in self.replicas if r.breaker == BREAKER_CLOSED))
 
     def run_until_drained(self, max_steps: Optional[int] = None) -> List[RoutedRequest]:
         """Step until every submitted request is terminal; returns (and
@@ -1871,9 +1946,39 @@ class ServingRouter:
             out[f"r{r.rid}"] = snap
         return out
 
+    # -------------------------------------------------------------- telemetry
+    @property
+    def telemetry(self):
+        """The shared recorder (the no-op recorder when off)."""
+        return self._obs
+
+    def telemetry_summary(self) -> Optional[Dict]:
+        """The shared recorder's summary with the replicas' compile reports
+        merged (watch names carry the replica's namespace, so none collide;
+        a replaced engine's watchdog is closed and not counted). None when
+        telemetry is off."""
+        if not self._obs_on:
+            return None
+        out = self._obs.summary()
+        per_fn: Dict = {}
+        unexpected: List = []
+        backend = 0
+        for r in self.replicas:
+            watchdog = getattr(r.engine, "watchdog", None)
+            if r.retired or watchdog is None:
+                continue
+            s = watchdog.summary()
+            per_fn.update(s["per_function"])
+            unexpected.extend(s["unexpected"])
+            backend = max(backend, s.get("backend_compiles", 0))
+        out["compile"] = {"per_function": per_fn, "backend_compiles": backend, "unexpected": unexpected}
+        return out
+
     def close(self) -> None:
         """Restore the signal handlers, close every replica (its journal and
-        stream), the router's journal and its metrics stream. Idempotent."""
+        stream), the router's journal, its metrics stream and a recorder the
+        router made from its knob (which writes its trace when it has a
+        path). Idempotent."""
         restore_preemption_handler(self._preempt_handler, self._preempt_previous)
         self._preempt_handler = None
         for r in self.replicas:
@@ -1884,3 +1989,5 @@ class ServingRouter:
             except Exception:  # noqa: BLE001 — close is best-effort teardown
                 pass
         self.metrics.close()
+        if self._owns_telemetry:
+            self._obs.close()

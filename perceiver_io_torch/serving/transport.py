@@ -305,6 +305,8 @@ class EngineClient:
         self._requests: Dict[int, ServedRequest] = {}
         self.finished: List[ServedRequest] = []
         self.journal: Optional[_ClientJournal] = None
+        # the worker runs telemetry-off: no compile report crosses the process
+        self.watchdog = None
         self.metrics = _ClientMetrics(self)
         self.scheduler = _SchedulerView(self)
         self._load = 0
@@ -338,6 +340,8 @@ class EngineClient:
                              "cudnn_tf32": torch.backends.cudnn.allow_tf32},
                 "num_threads": int(num_threads) if num_threads is not None else torch.get_num_threads(),
                 "replica_id": self._rid,
+                # the replica's telemetry namespace (the worker records nothing)
+                "obs_ns": f"serving.r{self._rid}",
             }, timeout=float(init_timeout_s))
         except BaseException:
             self._kill()

@@ -14,7 +14,8 @@ client's ``torch`` numerics flags (applied BEFORE the engine is built, so
 float64 and TF32 settings hold across the boundary), the thread count and
 the replica id. The journal and the metrics stream are written HERE, by the
 process that owns the engine, so their crash semantics are the engine's.
-The worker runs without telemetry, as the JAX package's does.
+The worker's engine runs with telemetry off (its spans would not reach the
+router's recorder), as the JAX package's does.
 
 Guarantees on this side:
 
@@ -139,8 +140,8 @@ class _Worker:
         model.load_state_dict(recipe["state_dict"])
         del recipe
         model_at = time.perf_counter()
-        self.engine = ServingEngine(model, metrics_jsonl=p["metrics_jsonl"], journal=p["journal"],
-                                    **p["engine_kwargs"])
+        self.engine = ServingEngine(model, metrics_jsonl=p["metrics_jsonl"], journal=p["journal"], telemetry=False,
+                                    obs_ns=p["obs_ns"], **p["engine_kwargs"])
         # the launch counts a reply carries start at the engine's first tick
         for m in _KERNELS.values():
             m.launches = 0

@@ -33,9 +33,25 @@ environment kill switches (``PERCEIVER_IO_TPU_DISABLE_PREFETCH``,
 ``..._ASYNC_CHECKPOINT``) are TPU rollback levers and are not ported: the
 fields are the switches.
 
-Fields whose JAX machinery is not ported yet raise when set:
-``pipeline_axis`` (parallel/pipeline.py), ``profile_dir`` (the profiler
-hook), ``telemetry`` (obs/).
+Telemetry (``obs/``): ``telemetry`` (the engine's encoding) records the
+JAX loop's phases: ``train.fetch_wait`` (the step thread blocked on the
+input, observed without a trace event), ``train.step_dispatch``,
+``train.log_sync`` around the window's one host read, ``train.eval``,
+``train.ckpt_submit`` (``mode`` "async", "sync" or "final") and
+``train.ckpt_drain``, the ``train.fetch_wait_frac`` gauge a log window,
+and a compile watchdog (the eager steps are watchable no-ops; kernel
+libraries loaded after the first log boundary, or after the first eval
+when one is configured, are flagged). A recorder the fit made from its
+knob is closed once, also when fit unwinds; ``Trainer.telemetry`` and
+``Trainer.telemetry_summary`` hold the last fit's. ``profile_dir``: a
+``torch.profiler`` trace (CPU activity, and CUDA on a card) of steps
+``profile_start_step`` + 1 to ``profile_start_step + profile_steps``,
+bracketed by a device synchronize each side as JAX's ``block_until_ready``,
+exported as a Chrome trace into ``profile_dir`` (``profile_steps_<a>-<b>.json``)
+and announced by a ``profile`` event.
+
+``pipeline_axis`` (parallel/pipeline.py) is not ported yet and raises when
+set.
 """
 
 from __future__ import annotations
@@ -49,6 +65,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 
 from perceiver_io_torch.data.prefetch import DevicePrefetcher, make_put
+from perceiver_io_torch.obs.core import resolve_recorder
+from perceiver_io_torch.obs.watchdog import CompileWatchdog
 from perceiver_io_torch.parallel.mesh import make_mesh, set_mesh
 from perceiver_io_torch.reliability import faults
 from perceiver_io_torch.reliability.preemption import install_preemption_handler, restore_preemption_handler
@@ -87,8 +105,6 @@ class TrainerConfig:
 # field -> the JAX module it needs, for the fields that raise when set
 _UNPORTED = {
     "pipeline_axis": "parallel/pipeline.py",
-    "profile_dir": "the profiler hook of training/fit.py",
-    "telemetry": "obs/",
 }
 
 
@@ -106,6 +122,21 @@ def _under_mesh(fn: Callable, mesh) -> Callable:
             return fn(*args, **kwargs)
 
     return wrapped
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device's queued work (the profiler's brackets)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _start_profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
 
 
 def _host(values: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -132,6 +163,8 @@ class Trainer:
         self.preempted = False  # True after a fit() stopped on SIGTERM/SIGINT
         self.writer: Optional[AsyncCheckpointWriter] = None  # the last fit's writer (its timings)
         self.final_save: Optional[Dict] = None  # the last fit's final save's timings
+        self.telemetry = None  # the recorder of the last fit with telemetry on
+        self.telemetry_summary: Optional[Dict] = None  # its final summary, with the compile block
         self._preempt_requested = False
         self._train_source = None
         # the metric stream is shared by this trainer's fits (a resume appends); close() releases it
@@ -202,9 +235,41 @@ class Trainer:
             else None
         self.writer, self.final_save = writer, None
 
+        # telemetry, resolved per fit: a recorder made here from the knob is
+        # closed when this fit ends (its trace written), one passed in stays
+        # open. The watchdog marks steady at the first log boundary (after the
+        # first eval when one is configured) and checks at each later one
+        obs, owns_obs = resolve_recorder(cfg.telemetry)
+        obs_on = obs.enabled
+        watchdog = CompileWatchdog(recorder=obs) if obs_on else None
+        if watchdog is not None:
+            watchdog.watch("train.step", train_step)
+            if eval_step is not None:
+                watchdog.watch("train.eval", eval_step)
+        self.telemetry = obs if obs_on else None
+        self.telemetry_summary = None
+        steady_marked = False
+        evaled_once = False
+        obs_closed = False
+
+        def close_obs():
+            # once: on the success path after the final save (the trace holds
+            # it), or from the finally when fit unwinds
+            nonlocal obs_closed
+            if obs_closed:
+                return
+            obs_closed = True
+            if watchdog is not None:
+                watchdog.check()
+                self.telemetry_summary = {**obs.summary(), "compile": watchdog.summary()}
+                watchdog.close()
+            if owns_obs:
+                obs.close()
+
         self.best = initial_best
         step_count = state.step
         window_t0, window_steps = time.perf_counter(), 0
+        fetch_wait_window = 0.0  # seconds the step thread waited on input in this log window
         acc, acc_steps = None, 0  # the log window's metric sums, kept on the device
         # a stateful (resumable) loader is obtained once and re-iterated each
         # epoch, so that its position survives and can be saved; stateless
@@ -214,6 +279,7 @@ class Trainer:
         first_source = wrap(raw_first)
         self._train_source = first_source if stateful else None
         epoch_source = None
+        profiler = None
         self._preempt_requested = False
         self.preempted = False
         fit_ok = False  # an explicit flag: sys.exc_info() also reports a caller's exception being handled
@@ -222,15 +288,42 @@ class Trainer:
             while step_count < cfg.max_steps and not self._preempt_requested:
                 epoch_source = first_source if stateful else wrap(train_loader_fn())
                 self._train_source = epoch_source if stateful else None
-                for batch in epoch_source:
-                    state, metrics = train_step(state, faults.poison_batch(loop_put(batch)))
+                epoch_iter = iter(epoch_source)
+                while True:
+                    # fetch wait: the step thread blocked on the input pipeline
+                    # (near zero while the prefetcher keeps up)
+                    t_fetch = time.perf_counter() if obs_on else 0.0
+                    try:
+                        batch = next(epoch_iter)
+                    except StopIteration:
+                        break
+                    if obs_on:
+                        wait_s = time.perf_counter() - t_fetch
+                        fetch_wait_window += wait_s
+                        obs.observe("train.fetch_wait", wait_s)
+                    if cfg.profile_dir and step_count == cfg.profile_start_step and profiler is None:
+                        _sync(device)  # the trace holds this fit's steps only
+                        profiler = _start_profiler(device)
+                        profile_from = step_count + 1
+                    with obs.span("train.step_dispatch"):
+                        state, metrics = train_step(state, faults.poison_batch(loop_put(batch)))
                     step_count += 1
                     window_steps += 1
                     acc = dict(metrics) if acc is None else {k: acc[k] + metrics[k] for k in acc}
                     acc_steps += 1
 
+                    if profiler is not None and step_count >= cfg.profile_start_step + cfg.profile_steps:
+                        _sync(device)
+                        self._export_profile(profiler, profile_from, step_count)
+                        profiler = None
+                        self._emit("profile", {"step": step_count, "profile_trace": cfg.profile_dir})
+                        # the export's time stays out of the window's throughput
+                        window_t0, window_steps, fetch_wait_window = time.perf_counter(), 0, 0.0
+
                     if step_count % cfg.log_every == 0:
-                        means = {k: v / acc_steps for k, v in _host(acc).items()}  # the window's one sync
+                        with obs.span("train.log_sync"):
+                            sums = _host(acc)  # the window's one sync
+                        means = {k: v / acc_steps for k, v in sums.items()}
                         acc, acc_steps = None, 0
                         dt = time.perf_counter() - window_t0
                         line = {"step": step_count, **{k: round(v, 5) for k, v in means.items()}}
@@ -238,29 +331,45 @@ class Trainer:
                             line["tokens_per_sec"] = round(cfg.tokens_per_batch * window_steps / dt, 1)
                             if cfg.flops_per_step and cfg.peak_flops:
                                 line["mfu"] = round(cfg.flops_per_step * window_steps / dt / cfg.peak_flops, 4)
+                        if obs_on:
+                            # the window's share of wall time waiting on input
+                            obs.gauge_set("train.fetch_wait_frac", round(fetch_wait_window / dt, 4) if dt > 0 else 0.0)
+                            fetch_wait_window = 0.0
+                            if watchdog is not None:
+                                if steady_marked:
+                                    watchdog.check()
+                                elif eval_step is None or evaled_once:
+                                    # what loaded before is warm-up; with eval
+                                    # configured, the first eval's too
+                                    watchdog.mark_steady()
+                                    steady_marked = True
                         self.history.append(line)
                         self._emit("train_log", line)
                         window_t0, window_steps = time.perf_counter(), 0
 
                     if cfg.checkpoint_dir and cfg.checkpoint_every and step_count % cfg.checkpoint_every == 0:
                         last = os.path.join(cfg.checkpoint_dir, "last")
-                        aux = self._iterator_aux("last_iterator.json")
-                        if writer is not None:  # a snapshot only: the writer thread serialises
-                            writer.submit(last, state, aux_files=aux, lineage=True, step=step_count)
-                        else:
-                            save_checkpoint_lineage(last, state, aux_files=aux, step=step_count)
+                        with obs.span("train.ckpt_submit", step=step_count,
+                                      mode="async" if writer is not None else "sync"):
+                            aux = self._iterator_aux("last_iterator.json")
+                            if writer is not None:  # a snapshot only: the writer thread serialises
+                                writer.submit(last, state, aux_files=aux, lineage=True, step=step_count)
+                            else:
+                                save_checkpoint_lineage(last, state, aux_files=aux, step=step_count)
                         # the save's time must not count in the next window's throughput
-                        window_t0, window_steps = time.perf_counter(), 0
+                        window_t0, window_steps, fetch_wait_window = time.perf_counter(), 0, 0.0
 
                     if eval_step is not None and step_count % cfg.eval_every == 0:
-                        val = self.evaluate(eval_step, eval_loader_fn(), put)
+                        with obs.span("train.eval", step=step_count):
+                            val = self.evaluate(eval_step, eval_loader_fn(), put)
+                        evaled_once = True
                         line = {"step": step_count, **{f"val_{k}": round(v, 5) for k, v in val.items()}}
                         self.history.append(line)
                         self._emit("val", line)
                         if on_eval is not None:
                             on_eval(state, val)
                         self._maybe_checkpoint(state, val, writer)
-                        window_t0, window_steps = time.perf_counter(), 0
+                        window_t0, window_steps, fetch_wait_window = time.perf_counter(), 0, 0.0
 
                     if step_count >= cfg.max_steps or self._preempt_requested:
                         # stop after the completed step and before the loop pulls
@@ -273,22 +382,44 @@ class Trainer:
             for src in (epoch_source, first_source):  # threads join on every way out
                 if isinstance(src, DevicePrefetcher):
                     src.shutdown()
+            if profiler is not None and not fit_ok:
+                profiler.stop()  # an unwinding fit exports nothing
             if writer is not None:
                 try:
-                    writer.close()  # drains: the final save below must not race a background write
+                    with obs.span("train.ckpt_drain"):
+                        writer.close()  # drains: the final save below must not race a background write
                 except Exception:
                     if fit_ok:  # an unwinding fit keeps its own exception
+                        close_obs()
                         raise
+            if not fit_ok:
+                close_obs()
 
-        self.preempted = self._preempt_requested
-        if self.preempted:
-            self._emit("preempted", {"step": step_count, "preempted": True})
-        if cfg.checkpoint_dir:
-            # the final synchronous save: after a preemption, the exact resume point
-            self.final_save = save_checkpoint_lineage(os.path.join(cfg.checkpoint_dir, "last"), state,
-                                                      aux_files=self._iterator_aux("last_iterator.json"),
-                                                      step=step_count)
+        try:
+            if profiler is not None:  # max_steps inside the profile window
+                _sync(device)
+                self._export_profile(profiler, profile_from, step_count)
+            self.preempted = self._preempt_requested
+            if self.preempted:
+                self._emit("preempted", {"step": step_count, "preempted": True})
+            if cfg.checkpoint_dir:
+                # the final synchronous save: after a preemption, the exact resume point
+                with obs.span("train.ckpt_submit", step=step_count, mode="final"):
+                    self.final_save = save_checkpoint_lineage(os.path.join(cfg.checkpoint_dir, "last"), state,
+                                                              aux_files=self._iterator_aux("last_iterator.json"),
+                                                              step=step_count)
+        finally:
+            close_obs()  # also when the tail raises: that run's trace is the one wanted
         return state
+
+    def _export_profile(self, profiler, first: int, last: int) -> str:
+        """Stop ``profiler`` and write its Chrome trace of steps
+        ``first``..``last`` into ``profile_dir``; returns the file's path."""
+        profiler.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir, f"profile_steps_{first}-{last}.json")
+        profiler.export_chrome_trace(path)
+        return path
 
     def _iterator_aux(self, filename: str) -> Optional[Dict]:
         """The loader-position sidecar of a lineage save, taken now, in step

@@ -1498,3 +1498,70 @@ def test_async_snapshot_submitted_before_an_in_place_step_holds_the_pre_step_sta
     assert state.step == 1 and all(a is b for a, b in zip(model.parameters(), params))
     assert all(torch.equal(v.cpu(), before[k]) for k, v in model.state_dict().items())
     PINNED.clear()
+
+
+def _sync_sites(fn):
+    """``fn()``'s result and its synchronizing CUDA calls, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them, counted by the
+    Python line that made them."""
+    import collections
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode's first use also warns that it is a prototype: not a sync)
+    return out, collections.Counter(f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}" for w in caught
+                                    if "called a synchronizing CUDA operation" in str(w.message))
+
+
+@pytest.mark.parametrize("page,quant", [(None, None), (5, "int4")], ids=["dense", "paged-int4"])
+def test_telemetry_watchdog_reads_the_capture_and_flags_a_late_kernel_load(card, page, quant):
+    """A captured engine with telemetry on: greedy tokens and the host syncs
+    of a run equal the telemetry-off engine's, the watchdog reads the decode
+    graph's one capture against budget 1 with nothing unexpected, and after
+    ``mark_steady`` a kernel library loaded anew in the process (its handle
+    dropped, so ``library()`` loads it again) is flagged."""
+    from perceiver_io_torch.obs import validate_chrome_trace
+    from perceiver_io_torch.ops import cuda_build
+
+    _, model = _graph_model(card)
+    kw = {} if page is None else dict(kv_page_size=page, kv_quant=quant)
+    requests = [(list(range(5, 19)), 6), (list(range(20, 40)), 9), ([3, 1, 4], 5), (list(range(40, 56)), 7)]
+    runs = {}
+    for telemetry in (False, True, False, True):
+        engine = ServingEngine(model, num_slots=3, telemetry=telemetry, **kw)
+
+        def serve():
+            handles = [engine.submit(p, max_new_tokens=m) for p, m in requests]
+            engine.run_until_drained(max_steps=200)
+            return [h.result().tolist() for h in handles]
+
+        tokens, sites = _sync_sites(serve)
+        runs.setdefault(telemetry, []).append((tokens, sites, engine.metrics.snapshot()["decode_steps"]))
+        if telemetry:
+            summary = engine.telemetry_summary()
+            assert summary["compile"]["per_function"] == {"serving.decode_step": {"compilations": 1, "budget": 1}}
+            assert summary["compile"]["unexpected"] == [] and engine.watchdog.check() == []
+            assert summary["phases"]["serving.sample_sync"]["count"] == engine.metrics.snapshot()["decode_steps"]
+            assert validate_chrome_trace(engine.telemetry.chrome_trace()) == []
+            watchdog = engine.watchdog
+        engine.close()
+    want = runs[False][0]
+    assert all(run == want for run in runs[True] + runs[False]) and sum(want[1].values()) > 0, [
+        (tokens == want[0], sites, ticks) for tokens, sites, ticks in runs[True] + runs[False]]
+
+    engine = ServingEngine(model, num_slots=3, telemetry=True, **kw)
+    engine.watchdog.mark_steady()
+    name = "decode_attention" if page is None else "paged_attention"
+    cuda_build._libs.pop(name)
+    cuda_build.library(name)  # a first load in the process again
+    violations = engine.watchdog.check()
+    assert [(v["kind"], v["libraries"]) for v in violations] == [("backend_compile_after_steady", [name])]
+    assert engine.telemetry.summary()["counters"]["compile.unexpected"] == 1
+    assert watchdog.backend_compiles == 0  # closed before the load: not counted
+    engine.close()

@@ -21,9 +21,11 @@ import pytest
 from test_torch_support import SERVING, build_pair
 
 from perceiver_io_torch.generation.generate import GenerationConfig
+from perceiver_io_torch.obs import load_chrome_trace, validate_chrome_trace
 from perceiver_io_torch.reliability import FAULTS, armed
 from perceiver_io_torch.serving import (BREAKER_CLOSED, BREAKER_HALF_OPEN, BREAKER_OPEN, RouterMetrics,
                                         ServingEngine, ServingRouter, load_metrics_jsonl)
+from perceiver_io_tpu.obs.trace import validate_chrome_trace as jax_validate_chrome_trace
 from perceiver_io_tpu.reliability import FAULTS as JAX_FAULTS
 from perceiver_io_tpu.reliability import armed as jax_armed
 from perceiver_io_tpu.serving import ServingEngine as JaxEngine
@@ -646,5 +648,13 @@ def test_submit_validation_and_unported_options(pair, tmp_path):
         ServingRouter(tm, num_replicas=1, autoscale=dict(max_replicas=2, bogus=1))
     with pytest.raises(ValueError, match="min_replicas"):
         ServingRouter(tm, num_replicas=1, autoscale=dict(min_replicas=2, max_replicas=4))
-    with pytest.raises(NotImplementedError, match="A2.5"):
-        ServingRouter(tm, telemetry=str(tmp_path / "t.json"))
+    # telemetry is ported: a trace path knob writes a valid Chrome trace on close()
+    trace = tmp_path / "t.json"
+    router = ServingRouter(tm, num_replicas=2, num_slots=1, telemetry=str(trace))
+    router.submit(_prompt(6), max_new_tokens=2)
+    router.run_until_drained(max_steps=50)
+    assert not trace.exists()
+    router.close()
+    loaded = load_chrome_trace(str(trace))
+    assert validate_chrome_trace(loaded) == [] and jax_validate_chrome_trace(loaded) == []
+    assert loaded["metadata"]["summary"]["phases"]["router.tick"]["count"] >= 2

@@ -340,13 +340,15 @@ def test_unported_training_knobs_and_policies_raise():
     with pytest.raises(ValueError, match="activation_checkpointing is False"):
         CausalSequenceModel(CausalSequenceModelConfig(**cfg, remat_policy="dots_with_no_batch_dims_saveable"),
                             device="cpu")
-    # the fit loop's fields whose JAX machinery waits for A2.5 and A5 (checkpoint_dir, checkpoint_every,
-    # metrics_jsonl and the rest are ported: tests/test_torch_train_resilience.py)
+    # the fit loop's field whose JAX machinery waits for A5 (checkpoint_dir, checkpoint_every,
+    # metrics_jsonl and the rest are ported: tests/test_torch_train_resilience.py; telemetry and
+    # profile_dir: tests/test_torch_obs.py)
     from perceiver_io_torch.training.fit import Trainer, TrainerConfig
 
-    for field in (dict(telemetry=True), dict(profile_dir="trace"), dict(pipeline_axis="pipe")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Trainer(TrainerConfig(**field))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        Trainer(TrainerConfig(pipeline_axis="pipe"))
+    for field in (dict(telemetry=True), dict(profile_dir="trace")):
+        assert Trainer(TrainerConfig(**field), log_fn=lambda line: None).telemetry is None  # set by fit()
     model = CausalSequenceModel(CausalSequenceModelConfig(**cfg), device="cpu")
     model.train()
     with pytest.raises(ValueError, match="eval mode"):
