@@ -6,7 +6,10 @@ replicas (failover, breakers, shedding, recovery), in process and in worker
 processes (a killed, a hung and a device-faulted worker), the router's fleet
 operations (migration, rolling restart, deploy and rollback, autoscaling)
 and training at the 455M
-flagship's full width, train the 30M recipe through the fit loop, train
+flagship's full width (under every remat policy and offloading too), train
+the 30M recipe through the fit loop, run Perceiver AR's text and symbolic
+audio faces (the 30.7M CLM recipe on the python-source corpus and the
+GiantMIDI recipe, each through its pipeline), train
 clm_8k sequence-parallel (ring attention over a {"seq": 4} mesh of the one
 card), run Perceiver IO optical-flow inference (the 41M model on a
 Sintel-sized frame pair) and training (the 41M model on two Sintel-sized
@@ -310,6 +313,27 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
      train_30m      the 30M recipe through run_fit / Trainer.fit on the
                     Markov data (gather prefix dropout 0.5): 10 steps and one
                     eval, whose loss must be finite; exact B1 counts
+     perceiver_ar_faces  (a) remat: the flagship from its seeded weights at
+                    batch 16 under no checkpointing, None, the six JAX
+                    policy names and offloading (with None and with
+                    dots_with_no_batch_dims_saveable): a warm-up and 2
+                    timed forward+backward steps each, ms a step, peak
+                    memory, B1a/B1b a step, offloading's pinned bytes and
+                    bytes each way; the first loss the same bits everywhere,
+                    gradients 1e-3 x RMS, aliases = targets, offloading's
+                    peak below the dots policy's by half its bytes; (b)
+                    text_clm: CausalLanguageModel at the 30.7M recipe with
+                    offloading, 10 run_fit steps and one eval on the
+                    recipe's TextDataModule over the python-source corpus,
+                    then TextGenerationPipeline's engine (8 prompts, equal
+                    to generate() on the canonical padding) and its direct
+                    path; (c) symbolic_audio: SymbolicAudioModel at the
+                    GiantMIDI recipe from a seeded .mid through
+                    SymbolicAudioPipeline (equal to generate(), the written
+                    file re-read), then a batch-8 step of
+                    SymbolicAudioDataModule under the dots policy and
+                    offloading (losses the same bits, offloading's peak
+                    lower); B1a, B1b and B2 launched; the phase's seconds
      train_sp       clm_8k (sequence 8192, 1024 latents, 8 layers, gather
                     prefix dropout 0.5, dots checkpointing) at batch 4 with
                     sequence_parallel_axis="seq" under {"seq": 4} on the one
@@ -336,8 +360,9 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     flow train step on a micro-batch of 2 seeded 368 x 496
                     patches: 3 warm-up and 5 timed steps (ms a step, patches/s,
                     peak memory); B1a and B1b by head width exact (D 512 once
-                    a step each, D 64 twice a self-attention layer for B1a
-                    and once for B1b); the loss finite and falling; then the
+                    a step each, twice for B1a with the decoder checkpointed,
+                    D 64 twice a self-attention layer for B1a and once for
+                    B1b); the loss finite and falling; then the
                     same in the model's default dtype (float32) on one
                     patch: B1a and B1b in float32 only, by width and dtype
                     exact
@@ -388,7 +413,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     every encoder parameter bit-identical after them, the
                     decoder's changed; B1 never launches (attention
                     dropout keeps every call off the gate)
- 10. digits_convergence  run_digits("glyphs") at DIGITS_STEPS (1,000) steps through
+ 10. digits_convergence  run_digits("glyphs") at DIGITS_STEPS (500) steps through
                     Trainer.fit: met (best val_acc >= 0.98), wall s, the
                     linear-probe baseline or null with its reason
 Each main path runs with every launch counter set to 0 just before it and
@@ -424,20 +449,29 @@ import perceiver_io_torch.ops.flash as fl
 import perceiver_io_torch.ops.paged_decode_kernel as pk
 import perceiver_io_torch.ops.ragged_paged_kernel as rk
 import perceiver_io_torch.training.checkpoint as ckpt
+from perceiver_io_torch.data.audio.midi_processor import ControlChange, Note, decode_notes, encode_notes
+from perceiver_io_torch.data.audio.smf import read_smf, write_smf
+from perceiver_io_torch.data.audio.symbolic import SymbolicAudioDataModule
 from perceiver_io_torch.data.loader import DataLoader
-from perceiver_io_torch.data.text.synthetic import SyntheticTextDataModule
+from perceiver_io_torch.data.text.common import Task, TextDataModule
+from perceiver_io_torch.data.text.synthetic import SyntheticTextDataModule, python_source_corpus
+from perceiver_io_torch.data.text.tokenizer import ByteTokenizer
 from perceiver_io_torch.data.vision.imagenet import ImageNetPreprocessor
 from perceiver_io_torch.data.vision.synthetic import flow_patches, make_flow_pair
 from perceiver_io_torch.generation.generate import GenerationConfig, generate
 from perceiver_io_torch.models.core.config import CausalSequenceModelConfig, clm_8k_config, flagship_455m_config
+from perceiver_io_torch.models.audio.symbolic import SymbolicAudioModel, SymbolicAudioModelConfig
+from perceiver_io_torch.models.core import offload
+from perceiver_io_torch.models.core.modules import REMAT_POLICIES, remat_plan
 from perceiver_io_torch.models.core.perceiver_ar import CausalSequenceModel
+from perceiver_io_torch.models.text.clm import CausalLanguageModel, CausalLanguageModelConfig
 from perceiver_io_torch.models.vision.image_classifier import ImageClassifier, vision_perceiver_fourier_config
 from perceiver_io_torch.models.vision.optical_flow import OpticalFlow, official_41m_config
 from perceiver_io_torch.obs import load_chrome_trace, validate_chrome_trace
 from perceiver_io_torch.ops import cuda_build
 from perceiver_io_torch.ops.position import apply_rope, frequency_position_encoding
 from perceiver_io_torch.parallel.mesh import make_mesh, set_mesh
-from perceiver_io_torch.pipelines import OpticalFlowPipeline
+from perceiver_io_torch.pipelines import OpticalFlowPipeline, SymbolicAudioPipeline, TextGenerationPipeline
 from perceiver_io_torch.scripts.common import OptimizerFlags, build_tx, run_fit
 from perceiver_io_torch.scripts.convergence import make_flow_train_step, run_digits, run_optical_flow_epe
 from perceiver_io_torch.reliability import FAULTS, RetryPolicy, armed
@@ -568,6 +602,7 @@ DECODE_SHAPES = {  # name: (batch, heads, head dim, rotary width, capacity)
     "flagship_cross_attention": (8, 10, 128, 128, 1024),
     "flagship_self_attention": (8, 10, 128, 128, 512),
     "clm_30m_decode": (8, 8, 64, 32, 4096),
+    "symbolic_audio_cross_attention": (8, 8, 96, 96, 6144),  # the GiantMIDI recipe's heads of 96 (two 64-lane passes)
 }
 PADS8 = [0, 0, 3, 17, 100, 250, 0, 1]  # left pads of the 8 rows
 
@@ -3458,8 +3493,8 @@ def train_flow(dtype=torch.bfloat16, patches=FLOW_TRAIN_PATCHES):
     FLOW_TRAIN_WARMUP steps, then FLOW_TRAIN_STEPS timed steps on the same
     batch (each synced: ms a step, patches/s), the counts zeroed just before
     them and read just after: B1a and B1b by head width must be exact (the
-    decoder's one head at D 512 once a step each; the self-attention layers
-    at D 64, B1a twice a layer with checkpointing, B1b once), all in
+    decoder's one head at D 512 and the self-attention layers at D 64, B1a
+    twice a layer with checkpointing, B1b once), all in
     ``dtype``, and nothing else launched; the loss finite and lower after
     the timed steps than at the first. Returns the launches by kernel and
     width."""
@@ -3489,7 +3524,7 @@ def train_flow(dtype=torch.bfloat16, patches=FLOW_TRAIN_PATCHES):
     by_dtype = {"B1a": dict(fl.forward_launches_by_dtype), "B1b": dict(fl.backward_launches_by_dtype)}
     others = {"B5": fl.block_launches, "B2-B4": dk.launches + pk.launches + rk.launches}
     remat = 2 if cfg.activation_checkpointing else 1  # a checkpointed layer's forward runs again in the backward
-    expected = {"B1a": {64: remat * layers * FLOW_TRAIN_STEPS, 512: FLOW_TRAIN_STEPS},
+    expected = {"B1a": {64: remat * layers * FLOW_TRAIN_STEPS, 512: remat * FLOW_TRAIN_STEPS},
                 "B1b": {64: layers * FLOW_TRAIN_STEPS, 512: FLOW_TRAIN_STEPS}}
     name = str(dtype).removeprefix("torch.")
     expected_by_dtype = {key: {name: sum(widths.values())} for key, widths in expected.items()}
@@ -3576,7 +3611,7 @@ def card_vs_cpu_flow_train():
         raise AssertionError(f"flow train card vs CPU: B1b launches {launches}, expected {{64: 2, 512: 1}}")
 
 
-FLOW_CONVERGENCE_STEPS = 600
+FLOW_CONVERGENCE_STEPS = 500
 
 
 def flow_convergence():
@@ -3771,7 +3806,7 @@ def card_vs_cpu_chunked():
 
 
 # -------------------------------------------------------- phase 7: training
-TRAIN_STEPS = 5  # steps per timed window; REPEATS windows, each ending in one host read of the loss
+TRAIN_STEPS = 3  # steps per timed window; REPEATS windows, each ending in one host read of the loss
 
 
 def flash_counts():
@@ -4482,6 +4517,393 @@ def train_30m():
     return counts
 
 
+# ------------------------------------- phase 7b: Perceiver AR's other faces
+FACES_BATCH = 16
+FACES_SETTINGS = {  # name: (activation_checkpointing, remat_policy, activation_offloading)
+    "no_checkpoint": (False, None, False),
+    "full_recompute": (True, None, False),
+    **{policy: (True, policy, False) for policy in REMAT_POLICIES},
+    "offload": (True, None, True),
+    "offload_dots_with_no_batch_dims": (True, "dots_with_no_batch_dims_saveable", True),
+}
+FACES_ALIASES = {"checkpoint_dots": "dots_saveable",
+                 "checkpoint_dots_with_no_batch_dims": "dots_with_no_batch_dims_saveable"}
+FACES_TEXT_BYTES = 2_000_000  # the python-source corpus the CLM recipe trains on
+FACES_TEXT_CHUNK = 65_536  # characters a source text
+FACES_TEXT_STEPS = 10
+FACES_PROMPTS = 8
+FACES_NEW_TOKENS = 32
+FACES_AUDIO_PROMPT = 2048
+FACES_AUDIO_NEW_TOKENS = 64
+FACES_AUDIO_FILES = 24
+FACES_AUDIO_BATCH = 8
+
+
+def faces_text_config() -> CausalLanguageModelConfig:
+    """The 30.7M CLM recipe (scripts/text/clm.py's MODEL_DEFAULTS and the
+    30M train config) with activation checkpointing and offloading."""
+    return CausalLanguageModelConfig(vocab_size=262, max_seq_len=4096, max_latents=512, num_channels=512, num_heads=8,
+                                     num_self_attention_layers=8, cross_attention_dropout=0.5, fused_qkv=True,
+                                     activation_checkpointing=True, activation_offloading=True)
+
+
+def faces_audio_config() -> SymbolicAudioModelConfig:
+    """The GiantMIDI recipe (scripts/audio/symbolic.py's MODEL_DEFAULTS and
+    DATA_DEFAULTS' sequence): 134M parameters."""
+    return SymbolicAudioModelConfig(vocab_size=389, max_seq_len=6144, max_latents=2048, num_channels=768, num_heads=8,
+                                    num_self_attention_layers=18, cross_attention_dropout=0.1,
+                                    post_attention_dropout=0.1, residual_dropout=0.1, output_norm=True,
+                                    output_bias=False, abs_pos_emb=False, activation_checkpointing=True)
+
+
+def _loss_and_grads(model, batch, max_latents, generator=None):
+    """The causal-LM train step's loss and gradients (labels -100 under pads,
+    CE over the latent logits), with no optimizer update."""
+    x = batch["input_ids"]
+    prefix_len = x.shape[1] - max_latents
+    labels = batch["labels"]
+    pad_mask = batch.get("pad_mask")
+    if pad_mask is not None:
+        labels = labels.masked_fill(pad_mask, -100)
+    model.train()
+    logits = model(x, prefix_len=prefix_len, pad_mask=pad_mask, generator=generator)
+    loss = cross_entropy(logits, labels[:, prefix_len:])
+    return loss.detach(), torch.autograd.grad(loss, trainable(model), materialize_grads=True)
+
+
+def _grad_error_over_rms(got, want) -> float:
+    """The largest max |got - want| / RMS(want) over the gradient tensors."""
+    return max(((a.float() - b.float()).abs().max() / b.float().pow(2).mean().sqrt().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def _timed_setting(model, block, plan, batch, max_latents, steps, generator_seed=None):
+    """Swap ``block``'s remat plan, reset the peak, then one warm-up step and
+    ``steps`` timed ones: (first loss, first gradients, the warm-up's ms,
+    the timed steps' ms, peak bytes, B1a and B1b a timed step, bytes to and
+    from the host a timed step)."""
+    block.remat = plan
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = lambda: None if generator_seed is None else torch.Generator().manual_seed(generator_seed)
+    zero_counts()
+    offload.reset_stats()
+    t0 = time.perf_counter()
+    loss, grads = _loss_and_grads(model, batch, max_latents, gen())
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    zero_counts()
+    offload.reset_stats()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, g = _loss_and_grads(model, batch, max_latents, gen())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del g
+    counts = {k: v / steps for k, v in flash_counts().items()}
+    moved = {k: offload.STATS[k] / steps for k in ("d2h_bytes", "h2d_bytes")}
+    return loss, grads, first_ms, ms, torch.cuda.max_memory_allocated(), counts, moved
+
+
+def faces_remat(model, init):
+    """(a) The flagship (``model``, from the seeded weights ``init``) at
+    batch FACES_BATCH on a fixed seeded batch under every remat setting: no
+    checkpointing, None, the JAX package's six policy names, and offloading
+    with None and with dots_with_no_batch_dims_saveable, each a train step's
+    forward and backward (no update) from the same weights: one warm-up step
+    and 2 timed ones. Gates: the first step's loss the same bits under every
+    setting; every gradient within 1e-3 x its RMS of the no-checkpoint
+    step's; each alias its target's launches and peak (1 %); offloading's
+    peak below the dots_with_no_batch_dims_saveable peak by at least half the
+    bytes it moves to the host a step; B1a 21 a step without checkpointing
+    or under everything_saveable and 41 otherwise (the self-attention
+    layers' recomputes), B1b 21. Peaks from the second setting on hold the
+    no-checkpoint gradients kept for the comparison. Returns the launches."""
+    cfg = model.config
+    layers = cfg.num_self_attention_layers
+    g = torch.Generator(DEVICE).manual_seed(SEED + 24)
+    x = torch.randint(0, cfg.vocab_size, (FACES_BATCH, cfg.max_seq_len), generator=g, device=DEVICE)
+    batch = {"input_ids": x, "labels": torch.roll(x, -1, dims=1)}
+    block = model.ar.self_attention
+    plan = block.remat
+    ref_loss = ref_grads = None
+    rows, launches = {}, {"B1a": 0, "B1b": 0}
+    for name, (ac, policy, off) in FACES_SETTINGS.items():
+        model.load_state_dict(init)
+        loss, grads, first_ms, ms, peak, counts, moved = _timed_setting(
+            model, block, remat_plan(policy, ac, off), batch, cfg.max_latents, 2)
+        for k in launches:
+            launches[k] += int(counts[k] * 2)
+        if ref_grads is None:
+            ref_loss, ref_grads = loss, grads
+        rows[name] = dict(
+            first_step_ms=first_ms, ms_per_step=ms, max_memory_allocated_bytes=peak, b1a_per_step=counts["B1a"], b1b_per_step=counts["B1b"],
+            first_loss=loss.item(), loss_bits_equal=bool(torch.equal(loss, ref_loss)),
+            max_grad_err_over_rms=_grad_error_over_rms(grads, ref_grads),
+            grads_bit_identical=all(torch.equal(a, b) for a, b in zip(grads, ref_grads)),
+            d2h_bytes_per_step=moved["d2h_bytes"], h2d_bytes_per_step=moved["h2d_bytes"],
+            pinned_host_bytes=offload.POOL.nbytes if off else 0)
+        del grads
+        emit(phase="perceiver_ar_faces", part="remat", model="flagship_455m", batch=FACES_BATCH, setting=name,
+             activation_checkpointing=ac, remat_policy=policy, activation_offloading=off, **rows[name])
+    block.remat = plan
+    model.load_state_dict(init)
+    del ref_grads
+    offload.POOL.clear()
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        ac, policy, _ = FACES_SETTINGS[name]
+        b1a = 1 + layers + (layers if ac and policy != "everything_saveable" else 0)
+        if (row["b1a_per_step"], row["b1b_per_step"]) != (b1a, 1 + layers):
+            raise AssertionError(f"remat {name}: B1a/B1b a step {row['b1a_per_step']}/{row['b1b_per_step']}, "
+                                 f"expected {b1a}/{1 + layers}")
+        if not (row["loss_bits_equal"] and row["max_grad_err_over_rms"] <= 1e-3):
+            raise AssertionError(f"remat {name}: loss bits equal {row['loss_bits_equal']}, gradient error "
+                                 f"{row['max_grad_err_over_rms']} x RMS (limit 1e-3)")
+    for alias, target in FACES_ALIASES.items():
+        a, t = rows[alias], rows[target]
+        if a["b1a_per_step"] != t["b1a_per_step"] or abs(a["max_memory_allocated_bytes"] -
+                                                         t["max_memory_allocated_bytes"]) > 0.01 * t[
+                "max_memory_allocated_bytes"]:
+            raise AssertionError(f"remat alias {alias}: launches {a['b1a_per_step']} peak "
+                                 f"{a['max_memory_allocated_bytes']}, {target}: {t['b1a_per_step']} "
+                                 f"{t['max_memory_allocated_bytes']}")
+    dots = rows["dots_with_no_batch_dims_saveable"]
+    for name in ("offload", "offload_dots_with_no_batch_dims"):
+        row = rows[name]
+        if not (row["d2h_bytes_per_step"] > 0 and row["max_memory_allocated_bytes"]
+                <= dots["max_memory_allocated_bytes"] - row["d2h_bytes_per_step"] / 2):
+            raise AssertionError(f"remat {name}: peak {row['max_memory_allocated_bytes']} against the dots policy's "
+                                 f"{dots['max_memory_allocated_bytes']}, {row['d2h_bytes_per_step']} bytes "
+                                 f"offloaded a step")
+    return launches
+
+
+class _PythonSourceText(TextDataModule):
+    """The CLM recipe's data module over the installed torch and numpy
+    sources: the python-source corpus's first FACES_TEXT_BYTES bytes as
+    FACES_TEXT_CHUNK-character texts, the last two for validation."""
+
+    def load_source_dataset(self):
+        corpus = python_source_corpus(FACES_TEXT_BYTES, packages=("torch", "numpy"))
+        if len(corpus) < FACES_TEXT_BYTES:
+            raise AssertionError(f"python-source corpus: {len(corpus)} bytes, expected {FACES_TEXT_BYTES}")
+        text = corpus.tobytes().decode("utf-8", errors="replace")
+        texts = [text[i:i + FACES_TEXT_CHUNK] for i in range(0, len(text), FACES_TEXT_CHUNK)]
+        return {"train": texts[:-2], "valid": texts[-2:]}
+
+
+def faces_text(tmp):
+    """(b) CausalLanguageModel at the 30.7M recipe's full width
+    (scripts/text/clm.py: sequence 4096, 512 latents, 512 channels, 8 heads
+    of 64, 8 layers, gather prefix dropout 0.5, vocab 262), bf16 compute,
+    with activation checkpointing and offloading, trained FACES_TEXT_STEPS
+    steps and one eval through run_fit on the recipe's TextDataModule
+    (bytes, left padding, random train shift, batch 20) prepared from the
+    python-source corpus; then TextGenerationPipeline: FACES_PROMPTS prompts
+    cut from the valid split through its engine (greedy,
+    FACES_NEW_TOKENS new tokens), each output equal to generate() on the
+    engine's canonical padding (the prompts left-padded to the window,
+    num_latents = max_latents, as one batch of the engine's 8 slots), and
+    one prompt through the direct path with num_latents 16. Gates: finite
+    losses, windows of 4,097 tokens shifted by one, exact B1 counts, B2
+    launched. Returns the launches."""
+    cfg = faces_text_config()
+    t0 = time.perf_counter()
+    data = _PythonSourceText(os.path.join(tmp, "text"), tokenizer="bytes", max_seq_len=cfg.max_seq_len,
+                             task=Task.clm, padding_side="left", random_train_shift=True, batch_size=20, seed=SEED)
+    data.prepare_data()
+    data.setup()
+    prepare_s = time.perf_counter() - t0
+    example = data.ds_train[0]
+    chunk = data.ds_train.dataset.dataset.chunks[0]
+    shifted = (len(chunk) == cfg.max_seq_len + 1 and len(example["input_ids"]) == cfg.max_seq_len
+               and list(example["input_ids"][1:]) == list(example["label_ids"][:-1]))
+    model = CausalLanguageModel(cfg, device=DEVICE, dtype=torch.bfloat16, seed=SEED)
+    tx = build_tx(OptimizerFlags(lr=2e-4, warmup_steps=200, schedule="cosine", max_grad_norm=0.5), FACES_TEXT_STEPS)
+    lines = []
+    trainer_cfg = TrainerConfig(max_steps=FACES_TEXT_STEPS, log_every=5, eval_every=FACES_TEXT_STEPS)
+    torch.cuda.synchronize()
+    zero_counts()
+    offload.reset_stats()
+    t1 = time.perf_counter()
+    run_fit(trainer_cfg, TrainState.create(model, tx, seed=SEED),
+            make_causal_lm_train_step(model, tx, max_latents=cfg.max_latents), data,
+            eval_step=make_causal_lm_eval_step(model, max_latents=cfg.max_latents),
+            log_fn=lambda line: lines.append(json.loads(line)))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    counts = flash_counts()
+    layers = cfg.num_self_attention_layers
+    eval_batches = len(data.val_dataloader())
+    expected = {"B1a": (1 + 2 * layers) * FACES_TEXT_STEPS + (1 + layers) * eval_batches,
+                "B1b": (1 + layers) * FACES_TEXT_STEPS}
+    losses = [ln["loss"] for ln in lines if "loss" in ln]
+    val = [ln["val_loss"] for ln in lines if "val_loss" in ln]
+    moved = dict(offload.STATS)
+    offload.POOL.clear()
+
+    model.eval()  # generation runs in eval mode
+    tok = ByteTokenizer()
+    valid = data.ds_valid.dataset.chunks
+    step = (cfg.max_seq_len - cfg.max_latents) // 16
+    prompts = [tok.decode(valid[i][: cfg.max_latents + (i + 1) * step].tolist()) for i in range(FACES_PROMPTS)]
+    pipe = TextGenerationPipeline(model)
+    dk.launches = 0
+    t2 = time.perf_counter()
+    out = pipe(prompts, max_new_tokens=FACES_NEW_TOKENS)
+    engine_s = time.perf_counter() - t2
+    engine_b2 = dk.launches
+    window = cfg.max_seq_len
+    ids = torch.full((FACES_PROMPTS, window), tok.pad_token_id, dtype=torch.long)
+    pad = torch.ones(FACES_PROMPTS, window, dtype=torch.bool)
+    for i, p in enumerate(prompts):
+        enc = tok.encode(p)
+        ids[i, window - len(enc):] = torch.tensor(enc)
+        pad[i, window - len(enc):] = False
+    want = generate(model, ids, num_latents=cfg.max_latents, pad_mask=pad, max_new_tokens=FACES_NEW_TOKENS)
+    canonical = [p + tok.decode([t for t in row[window:].tolist() if t != tok.pad_token_id])
+                 for p, row in zip(prompts, want.cpu())]
+    same = [a == b for a, b in zip(out, canonical)]
+    t3 = time.perf_counter()
+    direct = pipe(prompts[0], num_latents=16, max_new_tokens=FACES_NEW_TOKENS)
+    direct_s = time.perf_counter() - t3
+    b2 = dk.launches
+    emit(phase="perceiver_ar_faces", part="text_clm", model="clm_30m", steps=FACES_TEXT_STEPS, prepare_s=prepare_s,
+         train_chunks=len(data.ds_train), valid_chunks=len(valid), windows_shifted=shifted, fit_s=fit_s,
+         losses=losses, val_loss=val, launches=counts, expected_launches=expected, eval_batches=eval_batches,
+         offload_d2h_bytes=moved["d2h_bytes"], offload_h2d_bytes=moved["h2d_bytes"],
+         engine_slots=pipe._engine_inst.num_slots, engine_s=engine_s, engine_b2=engine_b2,
+         engine_equals_generate=same, direct_s=direct_s, direct_chars=len(direct) - len(prompts[0]), b2=b2)
+    if not (shifted and losses and all(math.isfinite(v) for v in losses + val) and len(val) == 1):
+        raise AssertionError(f"text_clm: windows shifted {shifted}, losses {losses}, eval {val}")
+    if counts != expected:
+        raise AssertionError(f"text_clm: launches {counts}, expected {expected}")
+    if not all(same):
+        raise AssertionError(f"text_clm: engine outputs differ from generate() on the canonical padding: {same}")
+    if not (engine_b2 and b2 > engine_b2 and moved["d2h_bytes"] > 0):
+        raise AssertionError(f"text_clm: B2 {engine_b2} / {b2}, offloaded {moved['d2h_bytes']} bytes")
+    pipe._engine_inst.close()
+    del pipe, model
+    torch.cuda.empty_cache()
+    return {"B1a": counts["B1a"], "B1b": counts["B1b"], "B2": b2}
+
+
+def _audio_notes(rng, n):
+    """``n`` seeded notes (overlapping chords and runs) and a sustain pedal
+    pressed and released every few seconds."""
+    notes, t = [], 0.0
+    for _ in range(n):
+        t += float(rng.choice([0.0, 0.05, 0.12, 0.25, 0.5]))
+        notes.append(Note(int(rng.integers(21, 109)), int(rng.integers(20, 128)), round(t, 2),
+                          round(t + float(rng.choice([0.1, 0.2, 0.4, 0.8, 1.6])), 2)))
+    pedal = [ControlChange(64, 127 if i % 2 == 0 else 0, round(1.5 * i + 0.3, 2)) for i in range(int(t / 1.5))]
+    return notes, pedal
+
+
+def faces_audio(tmp):
+    """(c) SymbolicAudioModel at the GiantMIDI recipe's full width
+    (scripts/audio/symbolic.py: sequence 6,144, 2,048 latents, 768
+    channels, 8 heads of 96, 18 layers, vocab 389, dropouts 0.1, output
+    norm, checkpointing), bf16 compute from seeded weights. A seeded note
+    list with a sustain pedal through write_smf, then SymbolicAudioPipeline
+    from the file with max_prompt_tokens 2048, FACES_AUDIO_NEW_TOKENS greedy
+    tokens and output_midi_path: its notes equal generate()'s on the same
+    prompt, the written file read back by read_smf re-encodes to the
+    generated tokens' notes, B2 launched (D 96). Then one train step's
+    forward and backward at batch 8 (a warm-up, whose offloading allocates
+    the pinned pool, and one timed) on a SymbolicAudioDataModule prepared
+    from FACES_AUDIO_FILES seeded .mid files, under
+    dots_with_no_batch_dims_saveable and with offloading, on the same batch
+    and dropout seed: the losses the same bits, the gradients within 1e-3 x
+    their RMS, offloading's peak below the dots policy's. Returns the
+    launches."""
+    cfg = faces_audio_config()
+    model = SymbolicAudioModel(cfg, device=DEVICE, dtype=torch.bfloat16, seed=SEED)
+    params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED + 24)
+    notes, pedal = _audio_notes(rng, 900)
+    prompt_path, out_path = os.path.join(tmp, "prompt.mid"), os.path.join(tmp, "continued.mid")
+    write_smf(prompt_path, notes, pedal)
+    tokens = encode_notes(read_smf(prompt_path).notes, read_smf(prompt_path).control_changes)[-FACES_AUDIO_PROMPT:]
+    dk.launches = 0
+    t0 = time.perf_counter()
+    doc = SymbolicAudioPipeline(model)(prompt_path, max_prompt_tokens=FACES_AUDIO_PROMPT,
+                                       max_new_tokens=FACES_AUDIO_NEW_TOKENS, output_midi_path=out_path)
+    pipeline_s = time.perf_counter() - t0
+    b2 = dk.launches
+    out = generate(model, torch.tensor(tokens)[None], max_new_tokens=FACES_AUDIO_NEW_TOKENS)[0].tolist()
+    want_notes = decode_notes(out)
+    same = [dataclasses.astuple(n) for n in doc.notes] == [dataclasses.astuple(n) for n in want_notes]
+    reread = read_smf(out_path)
+    reencoded = encode_notes(reread.notes, reread.control_changes) == encode_notes(want_notes)
+    emit(phase="perceiver_ar_faces", part="symbolic_audio_generate", model="giantmidi_134m", params=params,
+         prompt_tokens=len(tokens), new_tokens=FACES_AUDIO_NEW_TOKENS, pipeline_s=pipeline_s, b2=b2,
+         notes_out=len(doc.notes), equals_generate=same, reread_reencodes=reencoded)
+    if not (len(tokens) == FACES_AUDIO_PROMPT and same and reencoded and b2):
+        raise AssertionError(f"symbolic_audio: prompt {len(tokens)} tokens, equals generate() {same}, re-read "
+                             f"re-encodes {reencoded}, B2 {b2}")
+
+    source = {}
+    for split, n in (("train", FACES_AUDIO_FILES), ("valid", 2)):
+        d = os.path.join(tmp, "midi", split)
+        os.makedirs(d)
+        for i in range(n):
+            write_smf(os.path.join(d, f"{i}.mid"), *_audio_notes(rng, 1000))
+        source[split] = d
+
+    class LocalMidi(SymbolicAudioDataModule):
+        def load_source_dataset(self):
+            return source
+
+    data = LocalMidi(os.path.join(tmp, "giantmidi"), max_seq_len=cfg.max_seq_len, min_seq_len=cfg.max_latents,
+                     padding_side="left", batch_size=FACES_AUDIO_BATCH, seed=SEED)
+    data.prepare_data()
+    data.setup()
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in next(iter(data.train_dataloader())).items()}
+    block = model.ar.self_attention
+    runs = {}
+    for name, off in (("dots_with_no_batch_dims_saveable", False), ("offload", True)):
+        loss, grads, first_ms, ms, peak, counts, moved = _timed_setting(
+            model, block, remat_plan("dots_with_no_batch_dims_saveable", True, off), batch, cfg.max_latents, 1,
+            generator_seed=SEED + 7)
+        runs[name] = (loss, grads, peak, moved)
+        emit(phase="perceiver_ar_faces", part="symbolic_audio_train", setting=name, batch=FACES_AUDIO_BATCH,
+             loss=loss.item(), first_step_ms=first_ms, ms=ms[0], max_memory_allocated_bytes=peak,
+             pinned_host_bytes=offload.POOL.nbytes if off else 0, d2h_bytes=moved["d2h_bytes"],
+             h2d_bytes=moved["h2d_bytes"], b1a=counts["B1a"], b1b=counts["B1b"])
+    (l0, g0, p0, _), (l1, g1, p1, moved) = runs.values()
+    err = _grad_error_over_rms(g1, g0)
+    emit(phase="perceiver_ar_faces", part="symbolic_audio_train", losses_bits_equal=bool(torch.equal(l0, l1)),
+         max_grad_err_over_rms=err, grads_bit_identical=all(torch.equal(a, b) for a, b in zip(g0, g1)),
+         peak_dots=p0, peak_offload=p1, offloaded_bytes=moved["d2h_bytes"])
+    if not (torch.equal(l0, l1) and err <= 1e-3 and p1 < p0 and moved["d2h_bytes"] > 0):
+        raise AssertionError(f"symbolic_audio train: losses {l0.item()} / {l1.item()}, gradient error {err} x RMS, "
+                             f"peaks {p0} / {p1}")
+    del runs, g0, g1, model
+    offload.POOL.clear()
+    torch.cuda.empty_cache()
+    return {"B2": b2}
+
+
+def perceiver_ar_faces(flagship, init):
+    """Phase perceiver_ar_faces: (a) faces_remat on the flagship, (b)
+    faces_text, (c) faces_audio; prints the phase's seconds. Returns the
+    launches of its main paths, counted from 0 before each."""
+    t0 = time.perf_counter()
+    launches = faces_remat(flagship, init)
+    with tempfile.TemporaryDirectory() as tmp:
+        text = faces_text(tmp)
+        audio = faces_audio(tmp)
+    for k, v in text.items():
+        launches[k] = launches.get(k, 0) + v
+    launches["B2"] += audio["B2"]
+    emit(phase="perceiver_ar_faces", seconds=time.perf_counter() - t0, launches=launches, nvidia_smi=card_line())
+    return launches
+
+
 def card_vs_cpu_train():
     """The flagship at full width with 2 layers, float32 parameters and
     compute (TF32 off), batch 2, no dropout: the card's loss within 1e-5
@@ -4881,7 +5303,7 @@ CLASSIFIER_TRAIN_STEPS = 3
 CLASSIFIER_PARAMS = 48_440_627  # deepmind/vision-perceiver-fourier's count
 # run_digits("glyphs") at half its 3,000-step default (the card's time limit);
 # the 0.98 bar is the same
-DIGITS_STEPS = 1000
+DIGITS_STEPS = 500
 
 
 def classifier_images(n, seed):
@@ -5235,6 +5657,11 @@ def main() -> int:
     for k, v in train_flagship(flagship).items():
         launches[k] = launches.get(k, 0) + v
     for k, v in telemetry_training(flagship, init).items():
+        launches[k] += v
+    faces = perceiver_ar_faces(flagship, init)
+    if not (faces["B1a"] and faces["B1b"] and faces["B2"]):
+        raise AssertionError(f"a kernel of the perceiver_ar_faces path was never launched: {faces}")
+    for k, v in faces.items():
         launches[k] += v
     del flagship, init
     for k, v in train_30m().items():

@@ -1,13 +1,15 @@
 """Synthetic text corpus for training runs that need no download.
 
-The port's own copy of the Markov half of
-``perceiver_io_tpu/data/text/synthetic.py``: ``MarkovByteSource`` (an
-order-2 Markov chain over a byte alphabet with a seeded Dirichlet transition
-tensor and an analytically known entropy floor), the chain-window datasets
-and ``SyntheticTextDataModule`` with ``source="markov"``. The same seeds and
-numpy calls as the JAX package's, so both give the same batches bit for bit.
-The ``python_source`` corpus (the JAX package's own sources) is not ported
-yet and raises.
+The port's own copy of ``perceiver_io_tpu/data/text/synthetic.py``:
+``MarkovByteSource`` (an order-2 Markov chain over a byte alphabet with a
+seeded Dirichlet transition tensor and an analytically known entropy floor),
+the chain-window datasets, ``python_source_corpus`` (the installed packages'
+own ``.py`` files as a byte corpus: real text with no download) and
+``SyntheticTextDataModule`` over either. The same seeds, files and numpy
+calls as the JAX package's, so both give the same batches bit for bit. The
+corpus's ``packages`` default is the JAX package's; where those are not
+installed (the card's machine has no jax, flax or optax) pass others, such
+as ``("torch", "numpy")``.
 
 Batches follow the CLM trainer contract: ``input_ids`` (B, L) and ``labels``
 = the next token at each position.
@@ -15,6 +17,8 @@ Batches follow the CLM trainer contract: ``input_ids`` (B, L) and ``labels``
 
 from __future__ import annotations
 
+import glob
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -120,6 +124,30 @@ class MarkovByteSource:
         return out
 
 
+def python_source_corpus(max_bytes: int = 8_000_000, packages=("jax", "numpy", "flax", "optax")) -> np.ndarray:
+    """Byte corpus from the installed site-packages' .py files (deterministic
+    sorted traversal, capped at ``max_bytes``): real human-written text
+    available without network access. Returns uint8 ids (byte-level vocab)."""
+    import sysconfig
+
+    root = sysconfig.get_paths()["purelib"]
+    chunks, total = [], 0
+    for pkg in packages:
+        for path in sorted(glob.glob(os.path.join(root, pkg, "**", "*.py"), recursive=True)):
+            try:
+                with open(path, "rb") as f:
+                    data = f.read()
+            except OSError:
+                continue
+            chunks.append(np.frombuffer(data, np.uint8))
+            total += len(data)
+            if total >= max_bytes:
+                break
+        if total >= max_bytes:
+            break
+    return np.concatenate(chunks)[:max_bytes]
+
+
 class _ChainWindows:
     """Independent (n, L+1)-token chains as CLM examples: x = w[:-1], y = w[1:]."""
 
@@ -175,11 +203,26 @@ class _FreshChainWindows:
         return {"input_ids": self.x[idx], "labels": self.y[idx]}
 
 
+class _WindowDataset:
+    """Non-overlapping fixed-length windows with next-token labels."""
+
+    def __init__(self, ids: np.ndarray, seq_len: int):
+        n = (len(ids) - 1) // seq_len
+        self.x = ids[: n * seq_len].reshape(n, seq_len).astype(np.int32)
+        self.y = ids[1 : n * seq_len + 1].reshape(n, seq_len).astype(np.int32)
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, idx):
+        return {"input_ids": self.x[idx], "labels": self.y[idx]}
+
+
 @dataclass
 class SyntheticTextDataModule:
     """CLM data module over a Markov or python-source byte corpus."""
 
-    source: str = "markov"  # "markov" (the "python_source" corpus is not ported yet)
+    source: str = "markov"  # "markov" | "python_source"
     seq_len: int = 512
     batch_size: int = 16
     n_train_tokens: int = 2_000_000
@@ -217,9 +260,20 @@ class SyntheticTextDataModule:
             n_val = max(self.n_val_tokens // self.seq_len, 1)
             self.ds_valid = _ChainWindows(src.sample_windows(n_val, self.seq_len + 1, seed=self.seed + 2))
             return
-        if self.source == "python_source":
-            raise NotImplementedError("the python_source corpus is not ported yet; use source='markov'")
-        raise ValueError(f"unknown source {self.source!r}: expected markov | python_source")
+        if self.source != "python_source":
+            raise ValueError(f"unknown source {self.source!r}: expected markov | python_source")
+        want = self.n_train_tokens + self.n_val_tokens
+        corpus = python_source_corpus(max_bytes=want)
+        if len(corpus) < want:
+            # a silent shortfall would leave an empty split and an endless
+            # epoch loop; fail with the actual numbers instead
+            raise ValueError(
+                f"python_source corpus holds only {len(corpus)} bytes; "
+                f"requested {want} (n_train_tokens + n_val_tokens) — lower the request "
+                "or add packages to python_source_corpus"
+            )
+        self.ds_train = _WindowDataset(corpus[: self.n_train_tokens], self.seq_len)
+        self.ds_valid = _WindowDataset(corpus[self.n_train_tokens :], self.seq_len)
 
     def _collate(self, examples):
         return {

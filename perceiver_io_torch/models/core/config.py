@@ -9,22 +9,21 @@ Perceiver IO (``EncoderConfig``, ``DecoderConfig``, ``PerceiverIOConfig``):
 class count. ``scan_unroll`` is accepted and ignored (the layers run in a Python loop;
 ``base_kwargs`` leaves it out); ``freeze`` is carried for the task scripts
 and acts nothing here. The dropout rates act in training mode.
-``activation_checkpointing`` and ``remat_policy`` reach the encoder's
-cross-attention layers and self-attention blocks, where they act only in a
-forward that records gradients (the decoder's layer is not checkpointed, as
-the JAX decoder's is; ROADMAP C10); ``activation_offloading`` is carried for
-parity and reaches no module.
+``activation_checkpointing``, ``remat_policy`` and ``activation_offloading``
+reach the encoder's cross-attention layers and self-attention blocks and the
+decoder's layer, where they act only in a forward that records gradients
+(``modules.remat_plan``).
 
 Perceiver AR, the fields that act in the port: the dropout rates and mode
 (``cross_attention_dropout``, ``cross_attention_dropout_mode``,
 ``post_attention_dropout``, ``residual_dropout``; in training mode only),
-``activation_checkpointing`` and ``remat_policy`` (None or
-"dots_with_no_batch_dims_saveable"; the JAX package's other policy names
-raise), and ``sequence_parallel_axis`` (ring attention over that axis of the
-ambient mesh in the uncached forward, which raises without such a mesh; the
-cached entry points ignore it). ``activation_offloading`` and
-``pipeline_axis`` are not ported: a model that has them set raises when it is
-put in training mode (inference ignores them, as they change no result).
+``activation_checkpointing``, ``remat_policy`` (the JAX package's six policy
+names) and ``activation_offloading`` (the unbatched products kept in host
+memory, ``offload.py``), and ``sequence_parallel_axis`` (ring attention over
+that axis of the ambient mesh in the uncached forward, which raises without
+such a mesh; the cached entry points ignore it). ``pipeline_axis`` is not
+ported: a model that has it set raises when it is put in training mode
+(inference ignores it, as it changes no result).
 ``scan_unroll``, ``fused_qkv`` and ``pipeline_microbatches`` are execution
 knobs with no effect here; ``max_heads_parallel`` has none in either package.
 """

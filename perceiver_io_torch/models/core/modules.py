@@ -6,7 +6,9 @@ or the concat of ``kv_norm(prefix)`` and ``q_norm(x_q)``, Perceiver AR; with
 the serving engine's split prefill pass-throughs ``prefill_chunk_kv`` and
 ``prefill_latents_paged``), ``SelfAttention``, ``CrossAttentionLayer``,
 ``SelfAttentionLayer`` and ``SelfAttentionBlock``, with attention and
-residual dropout, per-layer activation checkpointing and ``seq_axis`` (the
+residual dropout, per-layer activation checkpointing under the JAX
+package's remat policies and activation offloading (``remat_plan``,
+``offload.py``) and ``seq_axis`` (the
 mesh axis over which the uncached attention runs as ring attention; see
 ``ops/attention.py``); and Perceiver IO's ``PerceiverEncoder``,
 ``PerceiverDecoder`` and ``PerceiverIO``. The Perceiver IO
@@ -34,7 +36,8 @@ their self-attention blocks.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from perceiver_io_torch.models.core.adapter import TrainableQueryProvider
+from perceiver_io_torch.models.core.offload import NO_BATCH_DOTS, offload_context_fn
 from perceiver_io_torch.ops.attention import KVCache, MultiHeadAttention
 from perceiver_io_torch.ops.layers import Dense, Dropout, LayerNorm, next_seed, seeded_generator
 
@@ -57,27 +61,69 @@ REMAT_POLICIES = (
     "dots_with_no_batch_dims_saveable",
     "checkpoint_dots_with_no_batch_dims",
 )
-# products without batch dimensions, the outputs the dots policy keeps: the
-# Dense layers' matrix products (F.linear reaches the dispatcher as mm or
-# addmm); attention's batched products and the flash kernels are recomputed
-_SAVED_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+# every matrix product, batched or not: what dots_saveable keeps (the masked
+# softmax's batched products among them); the flash kernels launch through
+# ctypes inside an autograd Function, are no dispatcher op, and are
+# recomputed under every policy, as a pallas_call is no dot_general in JAX
+_ALL_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.baddbmm.default]
+# products without batch dimensions, the outputs dots_with_no_batch_dims
+# keeps: the Dense layers' matrix products (F.linear reaches the dispatcher
+# as mm or addmm); attention's batched products are recomputed
+_SAVED_DOTS = list(NO_BATCH_DOTS)
 
 
-def remat_context_fn(name: Optional[str], activation_checkpointing: bool = True):
-    """The ``context_fn`` of ``torch.utils.checkpoint`` for a JAX remat
-    policy name: None is full recompute; "dots_with_no_batch_dims_saveable"
-    saves the Dense layers' products (selective checkpointing) and recomputes
-    the rest. The other JAX policies are not ported yet and raise."""
+@dataclass(frozen=True)
+class RematPlan:
+    """How a checkpointable layer runs when it records gradients: under
+    ``torch.utils.checkpoint`` (non-reentrant, the masks from the layer's
+    seed, so no RNG state is stashed) with ``context_fn``, or plainly."""
+
+    checkpoint: bool
+    context_fn: Optional[Callable] = None
+
+    def run(self, fn, *args):
+        if not (self.checkpoint and torch.is_grad_enabled()):
+            return fn(*args)
+        kw = {} if self.context_fn is None else {"context_fn": self.context_fn}
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def remat_plan(name: Optional[str], activation_checkpointing: bool = True,
+               activation_offloading: bool = False) -> RematPlan:
+    """The JAX package's ``_remat_policy`` (same checks, same messages) as a
+    ``RematPlan``: None and "nothing_saveable" recompute everything;
+    "everything_saveable" saves every residual, as no checkpoint does;
+    "dots_saveable" / "checkpoint_dots" save every matrix product and
+    "dots_with_no_batch_dims_saveable" /
+    "checkpoint_dots_with_no_batch_dims" the unbatched ones (selective
+    checkpointing); ``activation_offloading`` saves the unbatched ones in
+    host memory (``offload.py``) and recomputes the rest."""
+    if activation_offloading:
+        if not activation_checkpointing:
+            raise ValueError(
+                "activation_offloading requires activation_checkpointing=True "
+                "(offloading is a property of what the checkpoint saves)"
+            )
+        if name not in (None, "dots_with_no_batch_dims_saveable"):
+            raise ValueError(
+                f"activation_offloading composes with remat_policy=None or "
+                f"'dots_with_no_batch_dims_saveable' (it offloads exactly that "
+                f"policy's saveable set to host memory), got {name!r}"
+            )
+        return RematPlan(True, offload_context_fn)
     if name is None:
-        return None
+        return RematPlan(activation_checkpointing)
     if name not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {name!r}; expected one of {REMAT_POLICIES}")
     if not activation_checkpointing:
         raise ValueError("remat_policy is set but activation_checkpointing is False; enable it (or clear the policy)")
-    if name != "dots_with_no_batch_dims_saveable":
-        raise NotImplementedError(f"remat_policy {name!r} is not ported yet; the port has None (full recompute) "
-                                  "and 'dots_with_no_batch_dims_saveable'")
-    return functools.partial(create_selective_checkpoint_contexts, _SAVED_DOTS)
+    if name == "everything_saveable":
+        return RematPlan(False)
+    if name == "nothing_saveable":
+        return RematPlan(True)
+    dots = _ALL_DOTS if name in ("dots_saveable", "checkpoint_dots") else _SAVED_DOTS
+    return RematPlan(True, functools.partial(create_selective_checkpoint_contexts, dots))
 
 
 class MLP(nn.Module):
@@ -258,8 +304,8 @@ class SelfAttentionBlock(nn.Module):
     """``num_layers`` self-attention layers; the first ``num_rotary_layers``
     apply RoPE (-1 = all), the others get zero angles. With
     ``activation_checkpointing`` each layer of an uncached forward that
-    records gradients runs under ``torch.utils.checkpoint`` (non-reentrant)
-    with the ``remat_policy`` of ``remat_context_fn``."""
+    records gradients runs as ``remat_plan`` says for ``remat_policy`` and
+    ``activation_offloading``."""
 
     def __init__(self, num_layers: int, num_heads: int, num_channels: int, num_rotary_layers: int = 1,
                  causal_attention: bool = False, widening_factor: int = 1, dropout: float = 0.0,
@@ -267,11 +313,10 @@ class SelfAttentionBlock(nn.Module):
                  remat_policy: Optional[str] = None, qkv_bias: bool = True, out_bias: bool = True,
                  mlp_bias: bool = True, init_scale: float = 0.02, seq_axis=None, dtype=None,
                  param_dtype=torch.float32, device=None, num_qk_channels: Optional[int] = None,
-                 num_v_channels: Optional[int] = None):
+                 num_v_channels: Optional[int] = None, activation_offloading: bool = False):
         super().__init__()
         self.num_rotary_layers = num_rotary_layers
-        self.activation_checkpointing = activation_checkpointing
-        self._context_fn = remat_context_fn(remat_policy, activation_checkpointing)
+        self.remat = remat_plan(remat_policy, activation_checkpointing, activation_offloading)
         self.layers = nn.ModuleList(
             SelfAttentionLayer(num_heads, num_channels, causal_attention, widening_factor, dropout, residual_dropout,
                                qkv_bias, out_bias, mlp_bias, init_scale, seq_axis=seq_axis, dtype=dtype,
@@ -288,7 +333,6 @@ class SelfAttentionBlock(nn.Module):
         """``generator``: the caller's CPU generator, one seed drawn from it
         per layer that draws masks (training mode)."""
         still = None  # zero angles, made once if some layer is not rotary
-        remat = self.activation_checkpointing and kv_cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if self._rotary(i):
                 rq, rk = rope_q, rope_k
@@ -301,14 +345,7 @@ class SelfAttentionBlock(nn.Module):
                 kv_cache.length[i] = layer_cache.length
                 continue
             seed = next_seed(generator) if layer.draws else None
-            if remat:
-                # the masks come from the seed, not the default generators:
-                # no RNG state to stash and restore
-                kw = {} if self._context_fn is None else {"context_fn": self._context_fn}
-                x = checkpoint(_seeded_layer, layer, x, rq, rk, seed, use_reentrant=False,
-                               preserve_rng_state=False, **kw)
-            else:
-                x = _seeded_layer(layer, x, rq, rk, seed)
+            x = self.remat.run(_seeded_layer, layer, x, rq, rk, seed)
         return x, kv_cache
 
 
@@ -322,8 +359,9 @@ class PerceiverEncoder(nn.Module):
     the default, reuses ``self_attn_1``). The dropout rates act in training
     mode, with masks from the ``generator`` a forward is given. With
     ``activation_checkpointing`` a forward that records gradients runs each
-    cross-attention layer, and each self-attention layer, under
-    ``torch.utils.checkpoint``, as the JAX encoder ``nn.remat``s them."""
+    cross-attention layer, and each self-attention layer, as ``remat_plan``
+    says (``torch.utils.checkpoint``), as the JAX encoder ``nn.remat``s
+    them."""
 
     def __init__(self, input_adapter: nn.Module, num_latents: int, num_latent_channels: int,
                  num_cross_attention_heads: int = 4, num_cross_attention_qk_channels: Optional[int] = None,
@@ -334,16 +372,19 @@ class PerceiverEncoder(nn.Module):
                  num_self_attention_blocks: int = 1, first_self_attention_block_shared: bool = True,
                  self_attention_widening_factor: int = 1, dropout: float = 0.0, residual_dropout: float = 0.0,
                  init_scale: float = 0.02, activation_checkpointing: bool = False,
-                 remat_policy: Optional[str] = None, dtype=None, param_dtype=torch.float32, device=None):
+                 remat_policy: Optional[str] = None, dtype=None, param_dtype=torch.float32, device=None,
+                 activation_offloading: bool = False):
         super().__init__()
         if num_cross_attention_layers <= 0:
             raise ValueError("num_cross_attention_layers must be > 0")
-        self.activation_checkpointing = activation_checkpointing
-        self._context_fn = remat_context_fn(remat_policy, activation_checkpointing)
         if num_self_attention_blocks <= 0:
             raise ValueError("num_self_attention_blocks must be > 0")
         if num_cross_attention_layers > num_self_attention_blocks:
             raise ValueError("num_cross_attention_layers must be <= num_self_attention_blocks")
+        # the JAX encoder resolves the cross-attention's policy only under
+        # checkpointing, the blocks' always
+        self.remat = (remat_plan(remat_policy, True, activation_offloading) if activation_checkpointing
+                      else RematPlan(False))
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.num_latents, self.num_latent_channels = num_latents, num_latent_channels
         self.num_cross_attention_layers = num_cross_attention_layers
@@ -365,7 +406,7 @@ class PerceiverEncoder(nn.Module):
                 num_rotary_layers=0, widening_factor=self_attention_widening_factor, dropout=dropout,
                 residual_dropout=residual_dropout, activation_checkpointing=activation_checkpointing,
                 remat_policy=remat_policy, init_scale=init_scale, num_qk_channels=num_self_attention_qk_channels,
-                num_v_channels=num_self_attention_v_channels, **kw)
+                num_v_channels=num_self_attention_v_channels, activation_offloading=activation_offloading, **kw)
 
         self.cross_attn_1 = cross_attn()
         self.self_attn_1 = self_attn()
@@ -383,18 +424,13 @@ class PerceiverEncoder(nn.Module):
         per layer that draws masks (training mode)."""
         x_adapted = self.input_adapter(x)
         x_latent = self.latent_provider().expand(x.shape[0], -1, -1).to(x_adapted.dtype)
-        remat = self.activation_checkpointing and torch.is_grad_enabled()
 
         def cross(layer, x_latent):
-            # one seed a layer that draws masks; with ``remat`` the layer runs
-            # under torch.utils.checkpoint (JAX's ``nn.remat`` of it) and its
-            # recompute redraws the same masks from that seed
+            # one seed a layer that draws masks; under checkpointing (JAX's
+            # ``nn.remat`` of the layer) the recompute redraws the same masks
+            # from that seed
             seed = next_seed(generator) if layer.draws else None
-            if not remat:
-                return _seeded_cross_layer(layer, x_latent, x_adapted, pad_mask, seed)
-            kw = {} if self._context_fn is None else {"context_fn": self._context_fn}
-            return checkpoint(_seeded_cross_layer, layer, x_latent, x_adapted, pad_mask, seed, use_reentrant=False,
-                              preserve_rng_state=False, **kw)
+            return self.remat.run(_seeded_cross_layer, layer, x_latent, x_adapted, pad_mask, seed)
 
         x_latent = cross(self.cross_attn_1, x_latent)
         x_latent, _ = self.self_attn_1(x_latent, generator=generator)
@@ -413,16 +449,19 @@ class PerceiverDecoder(nn.Module):
     """Perceiver IO decoder: the output query (from ``output_query_provider``,
     which may read the adapted input) cross-attends to the latents; the
     output adapter maps the result to the task's output. Its dropout masks
-    come from the ``generator`` a forward is given (one seed a forward). The
-    JAX decoder ``nn.remat``s its layer under activation checkpointing; this
-    one is never checkpointed (ROADMAP C10)."""
+    come from the ``generator`` a forward is given (one seed a forward).
+    With ``activation_checkpointing`` a forward that records gradients runs
+    the cross-attention layer as ``remat_plan`` says, as the JAX decoder
+    ``nn.remat``s it."""
 
     def __init__(self, output_adapter: nn.Module, output_query_provider: nn.Module, num_latent_channels: int,
                  num_cross_attention_heads: int = 4, num_cross_attention_qk_channels: Optional[int] = None,
                  num_cross_attention_v_channels: Optional[int] = None, cross_attention_widening_factor: int = 1,
                  cross_attention_residual: bool = True, dropout: float = 0.0, init_scale: float = 0.02,
-                 dtype=None, param_dtype=torch.float32, device=None):
+                 dtype=None, param_dtype=torch.float32, device=None, activation_checkpointing: bool = False,
+                 remat_policy: Optional[str] = None, activation_offloading: bool = False):
         super().__init__()
+        self.remat = remat_plan(remat_policy, activation_checkpointing, activation_offloading)
         self.output_adapter = output_adapter
         self.output_query_provider = output_query_provider
         self.cross_attn = CrossAttentionLayer(
@@ -438,7 +477,8 @@ class PerceiverDecoder(nn.Module):
         if output_query.shape[0] == 1 and x_latent.shape[0] != 1:
             output_query = output_query.expand(x_latent.shape[0], *output_query.shape[1:])
         seed = next_seed(generator) if self.cross_attn.draws else None
-        output = _seeded_cross_layer(self.cross_attn, output_query.to(x_latent.dtype), x_latent, None, seed)
+        output = self.remat.run(_seeded_cross_layer, self.cross_attn, output_query.to(x_latent.dtype), x_latent,
+                                None, seed)
         return self.output_adapter(output, **kwargs)
 
 

@@ -256,7 +256,7 @@ class PerceiverAR(nn.Module):
                  post_attention_dropout: float = 0.0, residual_dropout: float = 0.0,
                  activation_checkpointing: bool = False, remat_policy: Optional[str] = None,
                  init_scale: float = 0.02, sequence_parallel_axis: Optional[str] = None, dtype=None,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, activation_offloading: bool = False):
         super().__init__()
         c = input_adapter.num_input_channels
         kw = dict(init_scale=init_scale, seq_axis=sequence_parallel_axis, dtype=dtype, param_dtype=param_dtype,
@@ -273,7 +273,8 @@ class PerceiverAR(nn.Module):
             num_self_attention_layers, num_heads, c, num_rotary_layers=num_self_attention_rotary_layers,
             causal_attention=True, widening_factor=self_attention_widening_factor,
             activation_checkpointing=activation_checkpointing, remat_policy=remat_policy,
-            qkv_bias=False, out_bias=False, mlp_bias=False, **drop, **kw,
+            activation_offloading=activation_offloading, qkv_bias=False, out_bias=False, mlp_bias=False, **drop,
+            **kw,
         )
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
@@ -570,7 +571,8 @@ class CausalSequenceModel(nn.Module):
             cross_attention_dropout_mode=config.cross_attention_dropout_mode,
             post_attention_dropout=config.post_attention_dropout, residual_dropout=config.residual_dropout,
             activation_checkpointing=config.activation_checkpointing, remat_policy=config.remat_policy,
-            init_scale=config.init_scale, sequence_parallel_axis=config.sequence_parallel_axis, **kw,
+            activation_offloading=config.activation_offloading, init_scale=config.init_scale,
+            sequence_parallel_axis=config.sequence_parallel_axis, **kw,
         )
         self.out_norm = LayerNorm(config.num_channels, LN_EPS, **kw) if config.output_norm else None
         self.output_adapter = TiedTokenOutputAdapter(config.vocab_size, config.output_bias, param_dtype, device)
@@ -611,14 +613,10 @@ class CausalSequenceModel(nn.Module):
 
     def train(self, mode: bool = True) -> "CausalSequenceModel":
         """Training mode (dropout on; ``eval()`` turns it off). Raises for the
-        config's pipeline and offloading knobs, which the port does not run
-        yet, rather than training without them."""
-        if mode:
-            cfg = self.config
-            unported = [name for name, on in (("activation_offloading", cfg.activation_offloading),
-                                              ("pipeline_axis", cfg.pipeline_axis is not None)) if on]
-            if unported:
-                raise NotImplementedError(f"training with {', '.join(unported)} is not ported yet")
+        config's pipeline knob, which the port does not run yet (ROADMAP A5),
+        rather than training without it."""
+        if mode and self.config.pipeline_axis is not None:
+            raise NotImplementedError("training with pipeline_axis is not ported yet")
         return super().train(mode)
 
     def forward(self, x: torch.Tensor, prefix_len: int, pad_mask: Optional[torch.Tensor] = None,

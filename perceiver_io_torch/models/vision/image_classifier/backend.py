@@ -89,14 +89,14 @@ class ImageClassifier(nn.Module):
         encoder_kwargs = enc.base_kwargs()
         if encoder_kwargs["num_cross_attention_qk_channels"] is None:
             encoder_kwargs["num_cross_attention_qk_channels"] = input_adapter.num_input_channels
-        self.encoder = PerceiverEncoder(
-            input_adapter, config.num_latents, config.num_latent_channels,
-            activation_checkpointing=config.activation_checkpointing, remat_policy=config.remat_policy,
-            **kw, **encoder_kwargs)
+        remat = dict(activation_checkpointing=config.activation_checkpointing, remat_policy=config.remat_policy,
+                     activation_offloading=config.activation_offloading)
+        self.encoder = PerceiverEncoder(input_adapter, config.num_latents, config.num_latent_channels, **remat, **kw,
+                                        **encoder_kwargs)
         self.decoder = PerceiverDecoder(
             ClassificationOutputAdapter(dec.num_classes, dec.num_output_query_channels, dec.init_scale, **kw),
             TrainableQueryProvider(1, dec.num_output_query_channels, dec.init_scale, param_dtype, device),
-            config.num_latent_channels, **kw, **dec.base_kwargs())
+            config.num_latent_channels, **kw, **dec.base_kwargs(), **remat)
         reset_parameters(self, torch.Generator(device).manual_seed(seed))
         self.eval()
 

@@ -150,15 +150,15 @@ class OpticalFlow(nn.Module):
         for key in ("num_cross_attention_qk_channels", "num_cross_attention_v_channels"):
             if encoder_kwargs[key] is None:
                 encoder_kwargs[key] = input_adapter.num_input_channels
-        self.encoder = PerceiverEncoder(
-            input_adapter, config.num_latents, config.num_latent_channels,
-            activation_checkpointing=config.activation_checkpointing, remat_policy=config.remat_policy,
-            **kw, **encoder_kwargs)
+        remat = dict(activation_checkpointing=config.activation_checkpointing, remat_policy=config.remat_policy,
+                     activation_offloading=config.activation_offloading)
+        self.encoder = PerceiverEncoder(input_adapter, config.num_latents, config.num_latent_channels, **remat, **kw,
+                                        **encoder_kwargs)
         self.decoder = PerceiverDecoder(
             OpticalFlowOutputAdapter(dec.image_shape, input_adapter.num_input_channels,
                                      rescale_factor=dec.rescale_factor, init_scale=dec.init_scale, **kw),
             OpticalFlowQueryProvider(input_adapter.num_input_channels), config.num_latent_channels,
-            **kw, **dec.base_kwargs())
+            **kw, **dec.base_kwargs(), **remat)
         reset_parameters(self, torch.Generator(device).manual_seed(seed))
         self.eval()
 

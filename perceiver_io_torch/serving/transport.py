@@ -180,9 +180,10 @@ def model_recipe(model, state_dict=None) -> bytes:
                         protocol=pickle.HIGHEST_PROTOCOL)
 
 
-def spawn_worker(device="cpu") -> Tuple[subprocess.Popen, socket.socket]:
+def spawn_worker(device) -> Tuple[subprocess.Popen, socket.socket]:
     """Start ``python -m perceiver_io_torch.serving.worker`` on one end of a
-    socketpair (exec, never fork: the parent may hold a CUDA context).
+    socketpair (exec, never fork: the parent may hold a CUDA context) for a
+    model on ``device`` (required: the caller names the model's device).
     Returns the process and the client's end. For a worker on the card the
     serving path's kernels (``SERVING_SOURCES``) are built here first, so
     that the workers load them and no two of them run one ``nvcc``."""

@@ -934,8 +934,8 @@ def test_flow_train_step_launch_counts_at_reduced_depth(card):
     """The 41M optical-flow model at full width with 2 self-attention layers,
     one 368 x 496 patch, bf16 over float32 parameters, activation
     checkpointing: one flow train step launches B1a at D 64 twice a layer
-    (the forward and the checkpoint's recompute) and once at D 512 (the
-    decoder, not checkpointed), B1b once a layer at D 64 and once at D 512,
+    (the forward and the checkpoint's recompute) and twice at D 512 (the
+    decoder, checkpointed too), B1b once a layer at D 64 and once at D 512,
     nothing else of the flash kernels; the loss is finite."""
     import numpy as np
 
@@ -956,7 +956,7 @@ def test_flow_train_step_launch_counts_at_reduced_depth(card):
     before = fl.block_launches
     _, metrics = step(TrainState.create(model, tx), batch)
     assert torch.isfinite(metrics["loss"]).item()
-    assert fl.forward_launches_by_width == {64: 4, 512: 1}
+    assert fl.forward_launches_by_width == {64: 4, 512: 2}  # checkpointing recomputes the decoder's layer too
     assert fl.backward_launches_by_width == {64: 2, 512: 1}
     assert fl.block_launches == before
 
@@ -1565,3 +1565,86 @@ def test_telemetry_watchdog_reads_the_capture_and_flags_a_late_kernel_load(card,
     assert engine.telemetry.summary()["counters"]["compile.unexpected"] == 1
     assert watchdog.backend_compiles == 0  # closed before the load: not counted
     engine.close()
+
+
+def _offload_model(card, **knobs):
+    cfg = CausalSequenceModelConfig(vocab_size=256, max_seq_len=512, max_latents=256, num_channels=256, num_heads=2,
+                                    num_self_attention_layers=4, cross_attention_dropout=0.0,
+                                    activation_checkpointing=True, **knobs)
+    return CausalSequenceModel(cfg, device=card, dtype=torch.bfloat16, seed=0)
+
+
+def _peak_loss_and_grads(model, x):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model.train()
+    logits = model(x, prefix_len=x.shape[1] - model.max_latents)
+    loss = logits.float().logsumexp(-1).mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    return loss, grads, torch.cuda.max_memory_allocated()
+
+
+def test_offloading_keeps_the_products_in_pinned_host_memory(card):
+    """activation_offloading on a small bf16 model on the card: every saved
+    product goes to page-locked host memory and comes back; the peak is
+    below the dots_with_no_batch_dims_saveable step's; loss and gradients
+    equal that step's (the same products, restored bit for bit)."""
+    from perceiver_io_torch.models.core import offload
+
+    dots = _offload_model(card, remat_policy="dots_with_no_batch_dims_saveable")
+    off = _offload_model(card, activation_offloading=True)
+    x = torch.randint(0, 256, (16, 512), generator=torch.Generator(card).manual_seed(1), device=card)
+    want_loss, want_grads, dots_peak = _peak_loss_and_grads(dots, x)
+    del dots
+    offload.reset_stats()
+    seen = []
+    real_put = offload._Store.put
+
+    def put(store, out):
+        real_put(store, out)
+        seen.append(store.entries[-1][0])
+
+    offload._Store.put = put
+    try:
+        loss, grads, peak = _peak_loss_and_grads(off, x)
+    finally:
+        offload._Store.put = real_put
+    assert seen and all(buf.is_pinned() and buf.device.type == "cpu" for buf in seen)
+    assert offload.STATS["offloaded"] == 6 * 4 and offload.STATS["restored"] > 0
+    assert offload.POOL.nbytes >= offload.STATS["d2h_bytes"] > 0
+    assert peak < dots_peak
+    assert torch.equal(loss, want_loss)
+    for a, b in zip(grads, want_grads):
+        torch.testing.assert_close(a, b, atol=1e-3 * b.float().pow(2).mean().sqrt().item(), rtol=0)
+    offload.POOL.clear()
+
+
+def test_text_pipeline_engine_path_equals_generate_on_the_card(card):
+    """TextGenerationPipeline on the card, float32: the engine's outputs for
+    4 prompts equal generate() on the engine's canonical padding (the
+    prompts left-padded to the window, num_latents = max_latents), run as
+    one batch of the engine's slots; B2 launched."""
+    from perceiver_io_torch.generation.generate import generate
+    from perceiver_io_torch.models.text.clm import CausalLanguageModel, CausalLanguageModelConfig
+    from perceiver_io_torch.pipelines import TextGenerationPipeline
+
+    cfg = CausalLanguageModelConfig(vocab_size=262, max_seq_len=256, max_latents=64, num_channels=128, num_heads=2,
+                                    num_self_attention_layers=2, cross_attention_dropout=0.0, init_scale=0.5)
+    model = CausalLanguageModel(cfg, device=card, seed=3)
+    prompts = ["def forward(self, x):" * 4, "import numpy as np\n" * 5, "return torch.cat([a, b])" * 3,
+               "class Model(nn.Module):" * 4]
+    pipe = TextGenerationPipeline(model, engine_slots=4)
+    before = dk.launches
+    out = pipe(prompts, max_new_tokens=12)
+    assert dk.launches > before
+    tok = pipe._tokenizer
+    ids = torch.zeros(4, 256, dtype=torch.long)
+    pad = torch.ones(4, 256, dtype=torch.bool)
+    for i, p in enumerate(prompts):
+        enc = tok.encode(p)
+        ids[i, 256 - len(enc):] = torch.tensor(enc)
+        pad[i, 256 - len(enc):] = False
+    want = generate(model, ids, num_latents=64, pad_mask=pad, max_new_tokens=12).cpu()
+    assert out == [p + tok.decode([t for t in row[256:].tolist() if t != 0]) for p, row in zip(prompts, want)]

@@ -324,15 +324,23 @@ def test_checkpointed_flash_layers_recompute_their_forward(flash_pair, monkeypat
 
 def test_unported_training_knobs_and_policies_raise():
     cfg = dict(SMALL)
-    for knob in (dict(activation_offloading=True), dict(pipeline_axis="pipe")):
-        model = CausalSequenceModel(CausalSequenceModelConfig(**cfg, **knob), device="cpu")
-        model.eval()  # inference ignores them
-        with pytest.raises(NotImplementedError, match="not ported"):
-            model.train()
+    model = CausalSequenceModel(CausalSequenceModelConfig(**cfg, pipeline_axis="pipe"), device="cpu")
+    model.eval()  # inference ignores it
+    with pytest.raises(NotImplementedError, match="not ported"):
+        model.train()
     # sequence parallelism is ported: the model trains (under a mesh, see test_torch_sequence_parallel.py)
     CausalSequenceModel(CausalSequenceModelConfig(**cfg, sequence_parallel_axis="seq"), device="cpu").train()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CausalSequenceModel(CausalSequenceModelConfig(**cfg, activation_checkpointing=True,
+    # every JAX remat policy and offloading are ported (tests/test_torch_remat.py); offloading keeps
+    # the JAX package's checks
+    for policy in ("dots_saveable", "everything_saveable", "checkpoint_dots"):
+        CausalSequenceModel(CausalSequenceModelConfig(**cfg, activation_checkpointing=True, remat_policy=policy),
+                            device="cpu").train()
+    CausalSequenceModel(CausalSequenceModelConfig(**cfg, activation_checkpointing=True, activation_offloading=True),
+                        device="cpu").train()
+    with pytest.raises(ValueError, match="requires activation_checkpointing=True"):
+        CausalSequenceModel(CausalSequenceModelConfig(**cfg, activation_offloading=True), device="cpu")
+    with pytest.raises(ValueError, match="composes with remat_policy"):
+        CausalSequenceModel(CausalSequenceModelConfig(**cfg, activation_checkpointing=True, activation_offloading=True,
                                                       remat_policy="dots_saveable"), device="cpu")
     with pytest.raises(ValueError, match="unknown remat_policy"):
         CausalSequenceModel(CausalSequenceModelConfig(**cfg, activation_checkpointing=True, remat_policy="bogus"),
@@ -407,5 +415,11 @@ def test_synthetic_markov_data_matches_jax_bit_for_bit():
                 np.testing.assert_array_equal(x[key], y[key])
     for x, y in zip(mine.val_dataloader(), theirs.val_dataloader(), strict=True):
         np.testing.assert_array_equal(x["input_ids"], y["input_ids"])
-    with pytest.raises(NotImplementedError, match="python_source"):
-        SyntheticTextDataModule(source="python_source").setup()
+    # the python_source corpus: the same windows as the JAX module's over the same installed files
+    kw = dict(source="python_source", seq_len=64, batch_size=4, n_train_tokens=4096, n_val_tokens=1024)
+    mine, theirs = SyntheticTextDataModule(**kw), JaxData(**kw)
+    mine.setup()
+    theirs.setup()
+    for x, y in zip(mine.train_dataloader(), theirs.train_dataloader(), strict=True):
+        for key in ("input_ids", "labels"):
+            np.testing.assert_array_equal(x[key], y[key])

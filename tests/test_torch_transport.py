@@ -544,3 +544,11 @@ def test_device_error_detection():
     accel = getattr(torch, "AcceleratorError", None)
     if accel is not None:
         assert is_device_error(accel("illegal memory access"))
+
+
+def test_spawn_worker_needs_the_models_device():
+    """``spawn_worker`` takes the model's device as a required argument: a
+    call without it raises before any process starts, so no caller can start
+    a CPU worker for a card model (and skip the kernels' one build)."""
+    with pytest.raises(TypeError, match="device"):
+        port_transport.spawn_worker()
