@@ -227,7 +227,7 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     two 5 s timeouts, the worker killed and reaped, a
                     breaker strike, failover by replay, the same tokens; (d)
                     a device-side assert in worker 1 at tick 40
-                    (transport.worker.device_fault through the environment):
+                    (transport.worker.device_fault, armed for that tick):
                     the CUDA error comes back, failover, worker 1 exits and
                     is respawned through its journal at tick 44 while worker
                     0 serves on, the same tokens, every process still
@@ -236,6 +236,12 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
                     worker replaced by a fresh one through its journal, the
                     rebuild tick's s and each new worker's startup by part,
                     no failover, no breaker transition, the same tokens.
+                    The runs go (a), (c), (d), (b), (e): (a)'s fleet starts
+                    while serving_router runs, (d)'s while (c) runs, (b)'s
+                    while (d) runs; each fleet's spare worker takes its
+                    probe, respawns and recycles; each worker warms its
+                    admission paths in its init (worker.warm_up), and (a)
+                    prints the warm-up's slowest RPCs by op.
                     Each worker's B2/B3 launches equal its
                     replays times a replay's, and count in the kernels line
      serving_router_fleet  the fleet operations, the same model and stream
@@ -416,6 +422,20 @@ Phases (each prints JSON lines; any failure raises and the exit code is not 0):
  10. digits_convergence  run_digits("glyphs") at DIGITS_STEPS (500) steps through
                     Trainer.fit: met (best val_acc >= 0.98), wall s, the
                     linear-probe baseline or null with its reason
+ 11. training_scripts  the training CLIs through their main(argv, device):
+                    (a) scripts/text/clm.py at its defaults (the 30.7M
+                    recipe, bf16) on the python-source corpus, constant
+                    schedule: SCRIPTS_STOP_STEP + 2 steps uninterrupted, a
+                    run stopped at SCRIPTS_STOP_STEP and resumed with
+                    --resume (its losses the uninterrupted run's bits), an
+                    eval and its sample each full run; B1a/B1b at D 64 in
+                    bf16 and B2 (the sample) launched, MFU printed; (b)
+                    scripts/audio/symbolic.py at its defaults (the 134M
+                    GiantMIDI recipe) for 2 steps on seeded .mid files:
+                    finite losses, peak memory; (c) run_clm("markov") on the
+                    gpu profile for SCRIPTS_MARKOV_STEPS steps: the best
+                    validation CE below the corpus's order-1 entropy
+                    H(X_t | X_{t-1}), met and the gap printed
 Each main path runs with every launch counter set to 0 just before it and
 read just after; a kernel of the path that was never launched fails the run.
 The last three lines are the card (nvidia-smi), the kernel table and
@@ -424,6 +444,7 @@ The last three lines are the card (nvidia-smi), the kernel table and
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -437,6 +458,7 @@ import sys
 import threading
 import time
 import warnings
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -454,7 +476,7 @@ from perceiver_io_torch.data.audio.smf import read_smf, write_smf
 from perceiver_io_torch.data.audio.symbolic import SymbolicAudioDataModule
 from perceiver_io_torch.data.loader import DataLoader
 from perceiver_io_torch.data.text.common import Task, TextDataModule
-from perceiver_io_torch.data.text.synthetic import SyntheticTextDataModule, python_source_corpus
+from perceiver_io_torch.data.text.synthetic import MarkovByteSource, SyntheticTextDataModule, python_source_corpus
 from perceiver_io_torch.data.text.tokenizer import ByteTokenizer
 from perceiver_io_torch.data.vision.imagenet import ImageNetPreprocessor
 from perceiver_io_torch.data.vision.synthetic import flow_patches, make_flow_pair
@@ -475,7 +497,6 @@ from perceiver_io_torch.pipelines import OpticalFlowPipeline, SymbolicAudioPipel
 from perceiver_io_torch.scripts.common import OptimizerFlags, build_tx, run_fit
 from perceiver_io_torch.scripts.convergence import make_flow_train_step, run_digits, run_optical_flow_epe
 from perceiver_io_torch.reliability import FAULTS, RetryPolicy, armed
-from perceiver_io_torch.reliability.faults import FAULT_ENV
 from perceiver_io_torch.serving import (BREAKER_CLOSED, RequestStatus, ServingEngine, ServingRouter, load_metrics_jsonl,
                                         read_journal, tree_bytes)
 from perceiver_io_torch.serving.quant import jax_leaf
@@ -527,20 +548,25 @@ _FLUSH = None
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock
 
 
+TIME_MS_BUDGET = 250.0  # ms of timed calls a reading aims at: slower calls get fewer reps, never under 5
+
+
 def time_ms(fn, reps=25, warmup=3, spin=False) -> float:
     """Median device time of ``fn`` in ms (CUDA events), with the 50 MB L2
     flushed before each run, as a decode step finds the caches. When the host
     takes longer to enqueue ``fn`` than the flush takes to run, the reading
     holds that difference too; with ``spin``, a spin kernel
     (``torch.cuda._sleep``) between the flush and the start event keeps the
-    card busy meanwhile, so the reading is the card's alone."""
+    card busy meanwhile, so the reading is the card's alone. Calls slower
+    than TIME_MS_BUDGET / reps take fewer reps (the plain versions and
+    library calls at the flow shapes, 20-280 ms each), at least 5."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    while len(times) < reps:
         _FLUSH.zero_()
         if spin:
             torch.cuda._sleep(SPIN_CYCLES)
@@ -550,6 +576,8 @@ def time_ms(fn, reps=25, warmup=3, spin=False) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+        if len(times) == 1:
+            reps = min(reps, max(5, int(TIME_MS_BUDGET / max(times[0], 1e-3))))
     return statistics.median(times)
 
 
@@ -2591,12 +2619,12 @@ PROCESS_TRANSPORT = dict(rpc_timeout_s=2.5, init_timeout_s=300.0,
                          retry=RetryPolicy(attempts=2, base_delay_s=0.05, max_delay_s=0.1, jitter=0.0))
 
 
-def process_router(model, **options):
+def process_router(model, transport=PROCESS_TRANSPORT, **options):
     """ROUTER_REPLICAS replicas of 8 slots in PROCESS_MODE, each in a worker
     process; returns the router and the seconds its construction took."""
     t0 = time.perf_counter()
     router = ServingRouter(model, num_replicas=ROUTER_REPLICAS, num_slots=8, replica_mode="process",
-                           transport=PROCESS_TRANSPORT, **SERVING_MODES[PROCESS_MODE][0], **options)
+                           transport=transport, **SERVING_MODES[PROCESS_MODE][0], **options)
     return router, time.perf_counter() - t0
 
 
@@ -2637,7 +2665,33 @@ def _timed_ticks(router, handles, tick_faults=None, watch=None):
     return ticks, wall, first, seconds
 
 
-def serving_router_process(model, stream, reference, in_process):
+class _FleetBehind:
+    """process_router(model, **options) built on a thread of its own, so a
+    fleet's workers start while the current fleet serves. The thread's CUDA
+    calls (the recipe's copy of the weights to the host) may fall inside a
+    decode-graph capture in the caller's thread: the engine captures in the
+    thread-local error mode, which they leave valid. ``join()`` waits and
+    returns (router, seconds the build took) or raises the build's error."""
+
+    def __init__(self, model, **options):
+        self._out = {}
+        self._thread = threading.Thread(target=self._build, args=(model, options), name="fleet-behind")
+        self._thread.start()
+
+    def _build(self, model, options):
+        try:
+            self._out["value"] = process_router(model, **options)
+        except BaseException as e:  # noqa: BLE001 — raised by join()
+            self._out["error"] = e
+
+    def join(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def serving_router_process(model, stream, reference, in_process, fleet=None):
     """The flagship in bf16 over request_stream through ServingRouter with
     two replicas of 8 slots in worker processes (paged_fp; each worker
     builds the model from its recipe and captures its own decode graph).
@@ -2654,7 +2708,8 @@ def serving_router_process(model, stream, reference, in_process):
     through its journal, no failover, no breaker transition, the same
     tokens, both workers alive. (d) a device-side
     assert in worker 1 at that tick (transport.worker.device_fault, armed
-    through the environment the workers inherit): the op's CUDA error comes
+    in this process for that tick, counted by worker 1's client): the op's
+    CUDA error comes
     back, the breaker opens, the requests fail over, worker 1 exits and is
     respawned through its journal at half-open, worker 0 serves on, every
     request's tokens are the same, and both workers and this process still
@@ -2663,8 +2718,13 @@ def serving_router_process(model, stream, reference, in_process):
     FLEET_TICK of them: each worker replaced by a fresh one through its
     journal (the rebuild tick's seconds, each new worker's startup by
     part), no failover, no breaker transition, the same tokens. Each
-    worker's B2-B4 launches equal its replays times a replay's. Returns the
-    launches summed over the workers."""
+    worker's B2-B4 launches equal its replays times a replay's. The runs go
+    (a), (c), (d), (b), (e): (d)'s fleet is built on a thread while (c)
+    runs, (b)'s while (d) runs (_FleetBehind), and each fleet's spare
+    worker (the router keeps one) takes the hang's probe, the respawns and
+    the recycles; ``fleet``, when given, is
+    (a)'s fleet, started by the caller before an earlier phase. Returns
+    the launches summed over the workers."""
     layers = model.config.num_self_attention_layers
     totals = {"B2": 0, "B3": 0, "B4": 0}
 
@@ -2678,11 +2738,15 @@ def serving_router_process(model, stream, reference, in_process):
     def submit_all(router):
         return [router.submit(p, config=c, seed=seed) for p, c, seed in stream]
 
-    # (a) fault-free
-    router, spawn_s = process_router(model)
+    # (a) fault-free, on ``fleet`` (a _FleetBehind started by the caller) or a fleet built here
+    router, spawn_s = fleet.join() if fleet is not None else process_router(model)
     warm = [router.submit(p, config=c, seed=seed) for p, c, seed in stream[:3]]
     router.run_until_drained()
     clients = [r.engine for r in router.replicas]
+    # the warm-up's slowest RPCs a worker (the init's excluded): the fresh
+    # workers' first ticks, which the workers' warm_up has made ordinary
+    warm_slowest = [sorted(((ms, op) for op, ms in zip(c.rpc_ops, c.rpc_ms) if op != "init"), reverse=True)[:3]
+                    for c in clients]
     before = [c.transport_stats() for c in clients]
     handles = submit_all(router)
     ticks, wall, first = drive_ticks(router.step, handles)
@@ -2705,7 +2769,7 @@ def serving_router_process(model, stream, reference, in_process):
          tokens_per_s_process_over_in_process=fleet["tokens_per_s"] / inproc["tokens_per_s"],
          rpcs_per_tick=rpcs / ticks, bytes_per_tick=moved / ticks,
          rpc_p50_ms=float(np.percentile(samples, 50)), rpc_p95_ms=float(np.percentile(samples, 95)),
-         rpc_max_ms=max(samples), worker_startup=[c.startup for c in clients], worker_pids=[w["pid"] for w in workers],
+         rpc_max_ms=max(samples), warm_up_slowest_rpcs=warm_slowest, worker_startup=[c.startup for c in clients], worker_pids=[w["pid"] for w in workers],
          worker_peak_bytes=[w["max_memory_allocated"] for w in workers],
          worker_allocated_bytes=[w["memory_allocated"] for w in workers], transport=snap["transport"],
          captures_per_worker=[c.decode_compilations for c in clients], tokens_identical_to_single_engine=identical,
@@ -2717,53 +2781,102 @@ def serving_router_process(model, stream, reference, in_process):
                              f"{snap['breaker_transitions']}")
     del handles, clients
 
-    # (c) SIGSTOP of worker 0, on the fault-free run's fleet (no journal)
-    hung = router.replicas[0].engine
-    hung_pid = hung.pid
-    states = ["closed"]  # replica 0's breaker after each tick
-
-    def watch(tick):
-        states.append(router.replicas[0].breaker)
-
-    handles = submit_all(router)
-    ticks, wall, first, seconds = _timed_ticks(
-        router, handles, {ROUTER_EVENT_TICK: ("transport.worker.hang", dict(slot=0))}, watch=watch)
-    totals_ac = _worker_counts("serving_router_process hang", router, layers)
-    add(totals_ac)
-    counts = {k: totals_ac[k] - counts[k] for k in totals_ac}
-    snap = router.snapshot()
-    router.close()
-    try:
-        os.kill(hung_pid, 0)
-        reaped = False
-    except ProcessLookupError:
-        reaped = True
-    reaped = reaped and not hung.alive and hung.pid is None
-    # the half-open promotion and the probe's close fall in one tick
-    breaker = [[t, f"{states[t - 1]}->{states[t]}"] for t in range(1, len(states)) if states[t] != states[t - 1]]
-    identical = same_tokens(handles)
-    t = snap["transport"]
-    emit(phase="serving_router_process", run="hang", mode=PROCESS_MODE, stopped_at_tick=ROUTER_EVENT_TICK,
-         signal="SIGSTOP", fleet="the fault-free run's", strike_tick_s=seconds[ROUTER_EVENT_TICK - 1],
-         half_open_tick_s=seconds[ROUTER_EVENT_TICK + ROUTER_COOLDOWN - 1], breaker_by_tick=breaker,
-         breaker_transitions=snap["breaker_transitions"], last_error=snap["replicas"]["r0"].get("last_error"),
-         hung_worker_reaped=reaped, failovers=snap["failovers"], failed_over=_moved(handles), timeouts=t["timeouts"],
-         worker_respawns=t["worker_respawns"], workers_alive=t["workers_alive"], tokens_identical=identical,
-         **_fleet_stats(ticks, wall, first, sum(len(h.output_ids) for h in handles)), launches=counts)
-    if not (identical and reaped and snap["failovers"] > 0
-            and breaker == [[ROUTER_EVENT_TICK, "closed->open"], [ROUTER_EVENT_TICK + ROUTER_COOLDOWN, "open->closed"]]
-            and snap["breaker_transitions"] == {"closed->open": 1, "half_open->closed": 1, "open->half_open": 1}
-            and "TransportError" in (snap["replicas"]["r0"].get("last_error") or "") and t["timeouts"] == 2
-            and t["worker_respawns"] == 0 and t["workers_alive"] == ROUTER_REPLICAS):
-        raise AssertionError(f"serving_router_process hang: tokens identical {identical}, reaped {reaped}, "
-                             f"breaker {breaker} {snap['breaker_transitions']}, failovers {snap['failovers']}, "
-                             f"transport {t}, last error {snap['replicas']['r0'].get('last_error')}")
-    del router, handles, hung
-
     with tempfile.TemporaryDirectory() as tmp:
+        # (d)'s fleet starts while (c) runs
+        device_fleet = _FleetBehind(model, journal=os.path.join(tmp, "device", "r{i}"),
+                                    metrics_jsonl=os.path.join(tmp, "device.jsonl"))
+        # (c) SIGSTOP of worker 0, on the fault-free run's fleet (no journal)
+        hung = router.replicas[0].engine
+        hung_pid = hung.pid
+        states = ["closed"]  # replica 0's breaker after each tick
+
+        def watch(tick):
+            states.append(router.replicas[0].breaker)
+
+        handles = submit_all(router)
+        ticks, wall, first, seconds = _timed_ticks(
+            router, handles, {ROUTER_EVENT_TICK: ("transport.worker.hang", dict(slot=0))}, watch=watch)
+        totals_ac = _worker_counts("serving_router_process hang", router, layers)
+        add(totals_ac)
+        counts = {k: totals_ac[k] - counts[k] for k in totals_ac}
+        snap = router.snapshot()
+        router.close()
+        try:
+            os.kill(hung_pid, 0)
+            reaped = False
+        except ProcessLookupError:
+            reaped = True
+        reaped = reaped and not hung.alive and hung.pid is None
+        # the half-open promotion and the probe's close fall in one tick
+        breaker = [[t, f"{states[t - 1]}->{states[t]}"] for t in range(1, len(states)) if states[t] != states[t - 1]]
+        identical = same_tokens(handles)
+        t = snap["transport"]
+        emit(phase="serving_router_process", run="hang", mode=PROCESS_MODE, stopped_at_tick=ROUTER_EVENT_TICK,
+             signal="SIGSTOP", fleet="the fault-free run's", strike_tick_s=seconds[ROUTER_EVENT_TICK - 1],
+             half_open_tick_s=seconds[ROUTER_EVENT_TICK + ROUTER_COOLDOWN - 1], breaker_by_tick=breaker,
+             breaker_transitions=snap["breaker_transitions"], last_error=snap["replicas"]["r0"].get("last_error"),
+             hung_worker_reaped=reaped, failovers=snap["failovers"], failed_over=_moved(handles), timeouts=t["timeouts"],
+             worker_respawns=t["worker_respawns"], workers_alive=t["workers_alive"], tokens_identical=identical,
+             **_fleet_stats(ticks, wall, first, sum(len(h.output_ids) for h in handles)), launches=counts)
+        if not (identical and reaped and snap["failovers"] > 0
+                and breaker == [[ROUTER_EVENT_TICK, "closed->open"], [ROUTER_EVENT_TICK + ROUTER_COOLDOWN, "open->closed"]]
+                and snap["breaker_transitions"] == {"closed->open": 1, "half_open->closed": 1, "open->half_open": 1}
+                and "TransportError" in (snap["replicas"]["r0"].get("last_error") or "") and t["timeouts"] == 2
+                and t["worker_respawns"] == 0 and t["workers_alive"] == ROUTER_REPLICAS):
+            raise AssertionError(f"serving_router_process hang: tokens identical {identical}, reaped {reaped}, "
+                                 f"breaker {breaker} {snap['breaker_transitions']}, failovers {snap['failovers']}, "
+                                 f"transport {t}, last error {snap['replicas']['r0'].get('last_error')}")
+        del router, handles, hung
+
+        # (d) a device-side assert in worker 1, journaled
+        path = os.path.join(tmp, "device.jsonl")
+        router, spawn_s = device_fleet.join()
+        # the next fleet's workers start while this one runs
+        kill_fleet = _FleetBehind(model, journal=os.path.join(tmp, "kill", "r{i}"),
+                                  metrics_jsonl=os.path.join(tmp, "kill.jsonl"))
+        pid = router.replicas[1].engine.pid
+        errors = {}
+
+        def watch(tick):
+            if router.replicas[1].last_error and not errors:
+                errors[tick] = router.replicas[1].last_error
+
+        handles = submit_all(router)
+        ticks, wall, first, seconds = _timed_ticks(
+            router, handles, {ROUTER_EVENT_TICK: ("transport.worker.device_fault", dict(slot=1))}, watch=watch)
+        counts = _worker_counts("serving_router_process device fault", router, layers)
+        add(counts)
+        snap = router.snapshot()
+        probes = [r.engine.device_stats()["probe"] for r in router.replicas]
+        respawned = router.replicas[1].engine.pid not in (None, pid)
+        startup = router.replicas[1].engine.startup
+        router.close()
+        client_probe = torch.arange(8, device=DEVICE, dtype=torch.float32).sum().item()
+        breaker = _breaker_ticks(path)
+        identical = same_tokens(handles)
+        t = snap["transport"]
+        [(error_tick, error)] = errors.items() if len(errors) == 1 else [(None, None)]
+        emit(phase="serving_router_process", run="device_fault", mode=PROCESS_MODE, fault_at_tick=ROUTER_EVENT_TICK,
+             error_tick=error_tick, error=error, spawn_s=spawn_s,
+             half_open_tick_s=seconds[ROUTER_EVENT_TICK + ROUTER_COOLDOWN - 1], respawn_startup=startup,
+             breaker=breaker, failovers=snap["failovers"], failed_over=_moved(handles),
+             worker_respawns=t["worker_respawns"],
+             workers_alive=t["workers_alive"], worker_probes=probes, client_probe=client_probe,
+             tokens_identical=identical, **_fleet_stats(ticks, wall, first, sum(len(h.output_ids) for h in handles)),
+             launches=counts)
+        device_error = error is not None and ("AcceleratorError" in error or "CUDA error" in error)
+        if not (identical and respawned and device_error and error_tick == ROUTER_EVENT_TICK
+                and breaker == _cycle(ROUTER_EVENT_TICK, 1) and snap["failovers"] > 0 and t["worker_respawns"] == 1
+                and t["workers_alive"] == ROUTER_REPLICAS and probes == [28.0] * ROUTER_REPLICAS
+                and client_probe == 28.0):
+            raise AssertionError(f"serving_router_process device fault: tokens identical {identical}, respawned "
+                                 f"{respawned}, error at {error_tick}: {error}, breaker {breaker}, failovers "
+                                 f"{snap['failovers']}, transport {t}, probes {probes} and {client_probe}")
+        del router, handles
+
         # (b) SIGKILL of worker 1, journaled
         path = os.path.join(tmp, "kill.jsonl")
-        router, spawn_s = process_router(model, journal=os.path.join(tmp, "kill", "r{i}"), metrics_jsonl=path)
+        router, spawn_s = kill_fleet.join()
         pid = router.replicas[1].engine.pid
         handles = submit_all(router)
         ticks, wall, first, seconds = _timed_ticks(
@@ -2826,51 +2939,6 @@ def serving_router_process(model, stream, reference, in_process):
                                  f"{snap_e['breaker_transitions']}")
         del router, handles, watch
 
-        # (d) a device-side assert in worker 1, journaled
-        path = os.path.join(tmp, "device.jsonl")
-        os.environ[FAULT_ENV] = f"transport.worker.device_fault:slot=1,after={ROUTER_EVENT_TICK - 1}"
-        try:
-            router, spawn_s = process_router(model, journal=os.path.join(tmp, "device", "r{i}"), metrics_jsonl=path)
-        finally:
-            del os.environ[FAULT_ENV]  # the respawned worker must not inherit it
-        pid = router.replicas[1].engine.pid
-        errors = {}
-
-        def watch(tick):
-            if router.replicas[1].last_error and not errors:
-                errors[tick] = router.replicas[1].last_error
-
-        handles = submit_all(router)
-        ticks, wall, first, seconds = _timed_ticks(router, handles, watch=watch)
-        counts = _worker_counts("serving_router_process device fault", router, layers)
-        add(counts)
-        snap = router.snapshot()
-        probes = [r.engine.device_stats()["probe"] for r in router.replicas]
-        respawned = router.replicas[1].engine.pid not in (None, pid)
-        startup = router.replicas[1].engine.startup
-        router.close()
-        client_probe = torch.arange(8, device=DEVICE, dtype=torch.float32).sum().item()
-        breaker = _breaker_ticks(path)
-        identical = same_tokens(handles)
-        t = snap["transport"]
-        [(error_tick, error)] = errors.items() if len(errors) == 1 else [(None, None)]
-        emit(phase="serving_router_process", run="device_fault", mode=PROCESS_MODE, fault_at_tick=ROUTER_EVENT_TICK,
-             error_tick=error_tick, error=error, spawn_s=spawn_s,
-             half_open_tick_s=seconds[ROUTER_EVENT_TICK + ROUTER_COOLDOWN - 1], respawn_startup=startup,
-             breaker=breaker, failovers=snap["failovers"], failed_over=_moved(handles),
-             worker_respawns=t["worker_respawns"],
-             workers_alive=t["workers_alive"], worker_probes=probes, client_probe=client_probe,
-             tokens_identical=identical, **_fleet_stats(ticks, wall, first, sum(len(h.output_ids) for h in handles)),
-             launches=counts)
-        device_error = error is not None and ("AcceleratorError" in error or "CUDA error" in error)
-        if not (identical and respawned and device_error and error_tick == ROUTER_EVENT_TICK
-                and breaker == _cycle(ROUTER_EVENT_TICK, 1) and snap["failovers"] > 0 and t["worker_respawns"] == 1
-                and t["workers_alive"] == ROUTER_REPLICAS and probes == [28.0] * ROUTER_REPLICAS
-                and client_probe == 28.0):
-            raise AssertionError(f"serving_router_process device fault: tokens identical {identical}, respawned "
-                                 f"{respawned}, error at {error_tick}: {error}, breaker {breaker}, failovers "
-                                 f"{snap['failovers']}, transport {t}, probes {probes} and {client_probe}")
-        del router, handles
     torch.cuda.empty_cache()
     return totals
 
@@ -5546,6 +5614,202 @@ def digits_convergence():
         raise AssertionError(f"digits_glyphs: best validation accuracy {result['achieved']} is under 0.98")
 
 
+SCRIPTS_STOP_STEP = 2  # (a): the stopped run's steps; the resumed run goes on to SCRIPTS_STOP_STEP + 2
+SCRIPTS_AUDIO_STEPS = 2  # (b): the symbolic CLI's steps
+SCRIPTS_MARKOV_STEPS = 400  # (c): run_clm("markov") on the gpu profile (300 cleared the gate by 0.15 nats, at the curve's knee)
+SCRIPTS_AUDIO_FILES = 8
+
+
+def _recording_train_step(make_step, record):
+    """``make_step`` whose steps append (step, loss tensor) to ``record``."""
+
+    def make(model, tx, **kw):
+        step = make_step(model, tx, **kw)
+
+        def train_step(state, batch):
+            state, metrics = step(state, batch)
+            record.append((state.step, metrics["loss"]))
+            return state, metrics
+
+        return train_step
+
+    return make
+
+
+def _cli_run(main, argv, record):
+    """``main(argv, device=DEVICE)`` with its train steps' losses recorded
+    and its standard output captured; returns (the JSON lines it printed,
+    the losses by step as floats)."""
+    out = io.StringIO()
+    del record[:]
+    with contextlib.redirect_stdout(out):
+        main(argv, device=DEVICE)
+    torch.cuda.synchronize()
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    return lines, {int(s): float(loss) for s, loss in record}
+
+
+def scripts_clm(tmp):
+    """(a) scripts/text/clm.py's main at its defaults (the 30.7M recipe:
+    sequence 4096, 512 latents, 512 channels in 8 heads of 64, 8 layers,
+    batch 20, bf16 compute), its data group a TextDataModule over the
+    python-source corpus (_PythonSourceText), the constant schedule (a
+    cosine horizon would differ between a run and its resume), logged every
+    step and evaluated at step SCRIPTS_STOP_STEP + 2 with its sample. An
+    uninterrupted run of SCRIPTS_STOP_STEP + 2 steps, a run stopped at
+    SCRIPTS_STOP_STEP (its final checkpoint), and that run resumed with
+    --resume to SCRIPTS_STOP_STEP + 2. Gates: finite losses, the resumed
+    run's losses the uninterrupted run's bits, B1a and B1b launched at D 64
+    in bf16, B2 launched by the samples. Returns the launches."""
+    import perceiver_io_torch.scripts.text.clm as clm
+
+    full = SCRIPTS_STOP_STEP + 2
+    common = [f"--data.dataset_dir={tmp}/text", "--optimizer.schedule=constant", "--trainer.log_every=1",
+              f"--trainer.eval_every={full}"]
+    record = []
+    with mock.patch.multiple(clm, WikiTextDataModule=_PythonSourceText,
+                  make_causal_lm_train_step=_recording_train_step(make_causal_lm_train_step, record)):
+        zero_counts()
+        fl.forward_launches_by_width.clear()
+        fl.backward_launches_by_width.clear()
+        t0 = time.perf_counter()
+        lines, uninterrupted = _cli_run(clm.main, common + [f"--trainer.checkpoint_dir={tmp}/full",
+                                                            f"--trainer.max_steps={full}"], record)
+        full_s = time.perf_counter() - t0
+        _, stopped = _cli_run(clm.main, common + [f"--trainer.checkpoint_dir={tmp}/stopped",
+                                                  f"--trainer.max_steps={SCRIPTS_STOP_STEP}"], record)
+        t1 = time.perf_counter()
+        resumed_lines, resumed = _cli_run(clm.main, common + [f"--trainer.checkpoint_dir={tmp}/stopped",
+                                                              f"--trainer.max_steps={full}", "--resume"], record)
+        resume_s = time.perf_counter() - t1
+    counts = flash_counts()
+    by = {"B1a": {"width": dict(fl.forward_launches_by_width), "dtype": dict(fl.forward_launches_by_dtype)},
+          "B1b": {"width": dict(fl.backward_launches_by_width), "dtype": dict(fl.backward_launches_by_dtype)}}
+    b2 = dk.launches
+    params = next(ln["model_params"] for ln in lines if "model_params" in ln)
+    sizes = next(ln for ln in lines if "flops_per_step" in ln)
+    logged = [ln for ln in lines if "loss" in ln and "step" in ln]
+    samples = [ln["sample"] for ln in lines + resumed_lines if "sample" in ln]
+    val = [ln["val_loss"] for ln in lines if "val_loss" in ln]
+    resumed_from = next((ln["resumed_from_step"] for ln in resumed_lines if "resumed_from_step" in ln), None)
+    same = sorted(resumed) == list(range(SCRIPTS_STOP_STEP + 1, full + 1)) and all(
+        float.hex(resumed[s]) == float.hex(uninterrupted[s]) for s in resumed)
+    emit(phase="training_scripts", part="clm_cli", model="clm_30m", model_params=params, **sizes,
+         steps=full, full_s=full_s, resume_s=resume_s, losses=[uninterrupted[s] for s in sorted(uninterrupted)],
+         logged_losses=[ln["loss"] for ln in logged], mfu=[ln.get("mfu") for ln in logged],
+         tokens_per_sec=[ln.get("tokens_per_sec") for ln in logged], val_loss=val,
+         stopped_losses=[stopped[s] for s in sorted(stopped)], resumed_from_step=resumed_from,
+         resumed_losses=[resumed[s] for s in sorted(resumed)], resumed_equal_bits=same, samples=samples,
+         launches=counts, launches_by=by, b2=b2)
+    losses = list(uninterrupted.values()) + list(stopped.values()) + list(resumed.values()) + val
+    if not (len(uninterrupted) == full and all(math.isfinite(v) for v in losses) and len(samples) == 2):
+        raise AssertionError(f"clm_cli: losses {uninterrupted} {stopped} {resumed}, eval {val}, samples {samples}")
+    if not (same and resumed_from == SCRIPTS_STOP_STEP and all(stopped[s] == uninterrupted[s] for s in stopped)):
+        raise AssertionError(f"clm_cli: resumed from {resumed_from}: {resumed} against {uninterrupted}")
+    if not (by["B1a"]["width"].get(64) and by["B1b"]["width"].get(64)
+            and by["B1a"]["dtype"] == {"bfloat16": counts["B1a"]}
+            and by["B1b"]["dtype"] == {"bfloat16": counts["B1b"]} and b2):
+        raise AssertionError(f"clm_cli: B1 {by}, B2 {b2}")
+    if not any(m for m in (ln.get("mfu") for ln in logged)):
+        raise AssertionError(f"clm_cli: the fit loop reported no MFU (peak {sizes['peak_flops']})")
+    return {"B1a": counts["B1a"], "B1b": counts["B1b"], "B2": b2}
+
+
+def scripts_symbolic(tmp):
+    """(b) scripts/audio/symbolic.py's main at its defaults (the 134M
+    GiantMIDI recipe: sequence 6,144, 2,048 latents, 768 channels in 8 heads
+    of 96, 18 layers, checkpointing, batch 8, bf16 compute) for
+    SCRIPTS_AUDIO_STEPS steps, its data group a GiantMidiPianoDataModule
+    over SCRIPTS_AUDIO_FILES seeded .mid files written by write_smf. Gates:
+    finite losses, one a step; the peak memory is printed."""
+    import perceiver_io_torch.scripts.audio.symbolic as symbolic
+
+    rng = np.random.default_rng(SEED + 25)
+    source = {}
+    for split, n in (("train", SCRIPTS_AUDIO_FILES), ("valid", 2)):
+        d = os.path.join(tmp, "midi", split)
+        os.makedirs(d)
+        for i in range(n):
+            write_smf(os.path.join(d, f"{i}.mid"), *_audio_notes(rng, 1500))
+        source[split] = d
+
+    class LocalGiantMidi(symbolic.GiantMidiPianoDataModule):
+        def load_source_dataset(self):
+            return source
+
+    record = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.multiple(symbolic, GiantMidiPianoDataModule=LocalGiantMidi,
+                  make_causal_lm_train_step=_recording_train_step(make_causal_lm_train_step, record)):
+        lines, losses = _cli_run(symbolic.main, [f"--data.dataset_dir={tmp}/giantmidi", "--trainer.log_every=1",
+                                                 f"--trainer.max_steps={SCRIPTS_AUDIO_STEPS}",
+                                                 f"--trainer.checkpoint_dir={tmp}/sam"], record)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = next(ln["model_params"] for ln in lines if "model_params" in ln)
+    sizes = next(ln for ln in lines if "flops_per_step" in ln)
+    logged = [ln for ln in lines if "loss" in ln and "step" in ln]
+    emit(phase="training_scripts", part="symbolic_cli", model="giantmidi_134m", model_params=params, **sizes,
+         steps=SCRIPTS_AUDIO_STEPS, wall_s=wall, losses=[losses[s] for s in sorted(losses)],
+         mfu=[ln.get("mfu") for ln in logged], max_memory_allocated_bytes=peak)
+    if not (sorted(losses) == list(range(1, SCRIPTS_AUDIO_STEPS + 1))
+            and all(math.isfinite(v) for v in losses.values())):
+        raise AssertionError(f"symbolic_cli: losses {losses}")
+
+
+def order1_entropy(src) -> float:
+    """H(X_t | X_{t-1}) of an order-2 Markov source in nats: from its
+    stationary pair distribution pi(b, c) (which the chain's transitions
+    keep: pi(b, c) = sum_a pi(a, b) T[a, b, c]), -sum pi(b, c) log(pi(b, c)
+    / pi(b)). A model that reads only the last token cannot beat it."""
+    pi = src.stationary_pairs()
+    held = np.einsum("ab,abc->bc", pi, src.transitions())
+    if not np.allclose(held, pi, atol=1e-12):
+        raise AssertionError("the pair distribution is not stationary")
+    prev = pi.sum(axis=1, keepdims=True)
+    return float(-(pi * np.log(np.where(pi > 0, pi / prev, 1.0))).sum())
+
+
+def scripts_markov():
+    """(c) scripts/convergence.py's run_clm("markov") on the gpu profile
+    (sequence 512, 256 latents, 256 channels in 8 heads of 32, 4 layers,
+    vocabulary 64, batch 16, float32) for SCRIPTS_MARKOV_STEPS steps. Gate:
+    the best validation CE below the corpus's order-1 conditional entropy
+    H(X_t | X_{t-1}) (order1_entropy), which only a model that reads both
+    context tokens beats; ``met`` (within 0.05 nats of the order-2 floor)
+    and the gap are printed beside it."""
+    from perceiver_io_torch.scripts.convergence import run_clm
+
+    h1 = order1_entropy(MarkovByteSource(vocab_size=64))
+    zero_counts()
+    t0 = time.perf_counter()
+    result = run_clm("markov", SCRIPTS_MARKOV_STEPS, "clm_markov", device=DEVICE, log_fn=lambda line: None)
+    torch.cuda.synchronize()
+    curve = [h["val_loss"] for h in result["history"] if "val_loss" in h]
+    emit(phase="training_scripts", part="clm_markov", steps=SCRIPTS_MARKOV_STEPS, wall_s=time.perf_counter() - t0,
+         **{k: v for k, v in result.items() if k != "history"}, order1_entropy_nats=h1, val_loss_curve=curve,
+         launches=flash_counts())
+    if not (result["profile"] == "gpu" and result["achieved_val_ce_nats"] is not None
+            and result["achieved_val_ce_nats"] < h1):
+        raise AssertionError(f"clm_markov: best val CE {result['achieved_val_ce_nats']} is not below the order-1 "
+                             f"entropy {h1} (profile {result['profile']})")
+
+
+def training_scripts():
+    """Phase training_scripts: (a) scripts_clm, (b) scripts_symbolic, (c)
+    scripts_markov; prints the phase's seconds. Returns (a)'s launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = scripts_clm(tmp)
+        scripts_symbolic(tmp)
+    torch.cuda.empty_cache()
+    scripts_markov()
+    emit(phase="training_scripts", seconds=time.perf_counter() - t0, launches=launches, nvidia_smi=card_line())
+    return launches
+
+
 def wide_ptxas(source, lines):
     """The ptxas report of a wide flash source (flash_forward_wide or
     flash_backward_wide): registers and spill bytes of each kernel
@@ -5623,8 +5887,9 @@ def main() -> int:
         launches[k] += v
     journal_launches, model, stream, reference = serving_journal()
     recovery_launches = serving_recovery(model, stream, reference)
+    process_fleet = _FleetBehind(model)  # serving_router_process's first fleet starts while serving_router runs
     router_launches, references, router_stats = serving_router(model, stream)
-    process_launches = serving_router_process(model, stream, references[PROCESS_MODE], router_stats)
+    process_launches = serving_router_process(model, stream, references[PROCESS_MODE], router_stats, process_fleet)
     fleet_launches = serving_router_fleet(model, stream, references)
     telemetry_launches = telemetry_serving(model, stream)
     del model
@@ -5695,6 +5960,11 @@ def main() -> int:
         raise AssertionError(f"the image classifier path did not launch B1a in bf16 and float32: {classifier_launches}")
     train_image_classifier()
     digits_convergence()
+    scripts_launches = training_scripts()
+    if not all(scripts_launches.values()):
+        raise AssertionError(f"a kernel of the training_scripts path was never launched: {scripts_launches}")
+    for k, v in scripts_launches.items():
+        launches[k] += v
 
     head = decode_results[("flagship_cross_attention", "bfloat16", 1)]
     kernels = [dict(

@@ -68,12 +68,13 @@ journal, replica and transport hooks. The points:
   ``transport.worker.hang``  SIGSTOP the worker: alive but wedged; every RPC
                         times out until the retries are spent and the
                         breaker takes the strike
-  ``transport.worker.device_fault``  fires INSIDE a worker, at its replica's
-                        (``slot``) step_dispatch: an out-of-bounds gather on
-                        its device, a real device-side assert on the card,
-                        after which the worker exits (ROADMAP C15). Armed
-                        through the environment, which the worker inherits.
-                        The port's own point
+  ``transport.worker.device_fault``  counted by the client at its replica's
+                        (``slot``) step_dispatch and made INSIDE the worker,
+                        which that dispatch asks for it: an out-of-bounds
+                        gather on its device, a real device-side assert on
+                        the card, after which the worker exits (ROADMAP
+                        C15). Armed in the client's process, like the other
+                        transport points. The port's own point
 
 Arming: ``FAULTS.arm(point, after=..., times=..., value=..., slot=...)`` in
 process, or the environment variable
@@ -394,6 +395,7 @@ def fire_transport_worker_hang(replica_id: Optional[int] = None) -> Optional[Fau
 
 
 def fire_transport_worker_device_fault(replica_id: Optional[int] = None) -> Optional[FaultSpec]:
-    """Worker-side hook at the top of its ``step_dispatch`` (the port's own
-    point): when it fires, the worker gathers out of bounds on its device."""
+    """Client-side hook at a replica's ``step_dispatch`` (the port's own
+    point): when it fires, the dispatch asks its worker to gather out of
+    bounds on its device."""
     return FAULTS.fire("transport.worker.device_fault", target=replica_id)

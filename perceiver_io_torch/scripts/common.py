@@ -2,8 +2,8 @@
 
 Port of ``perceiver_io_tpu/scripts/common.py`` (``OptimizerFlags``,
 ``build_tx`` with ``freeze_encoder``, ``load_encoder_params``, ``run_fit``
-with ``resume``). The CLI scripts themselves wait for the data sets they
-load.
+with ``resume``) and ``size_report``, the model size and FLOPs lines the
+causal-LM scripts print (``scripts/text/clm.py``, ``scripts/audio/symbolic.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from torch import nn
 
 from perceiver_io_torch.training.checkpoint import load_pytree
 from perceiver_io_torch.training.fit import Trainer, TrainerConfig
+from perceiver_io_torch.training.flops import PerceiverARFlops, detect_peak_flops
 from perceiver_io_torch.training.lrs import constant_with_warmup, cosine_with_warmup
 from perceiver_io_torch.training.trainer import AdamW, TrainState, build_optimizer
 
@@ -47,6 +48,22 @@ def build_tx(flags: OptimizerFlags, max_steps: int) -> AdamW:
     freeze_filter = (lambda path: "encoder" in path) if flags.freeze_encoder else None
     return build_optimizer(schedule, weight_decay=flags.weight_decay, max_grad_norm=flags.max_grad_norm,
                            freeze_filter=freeze_filter, accumulate_steps=flags.accumulate_steps)
+
+
+def size_report(model: nn.Module, batch_size: int) -> dict:
+    """Print the causal-LM ``model``'s parameter count as ``{"model_params":
+    n}``, then the latent tokens a batch and the training FLOPs a step
+    (``PerceiverARFlops`` at the full sequence, the prefix dropout counted)
+    and the card's peak, one JSON line each. Returns the three as
+    ``TrainerConfig`` fields, from which the fit loop logs tokens/s and
+    MFU (no MFU without a known card)."""
+    config = model.config
+    print(json.dumps({"model_params": sum(p.numel() for p in model.parameters())}))
+    flops = PerceiverARFlops(config, config.max_seq_len, config.cross_attention_dropout)
+    fields = dict(tokens_per_batch=flops.tokens_per_step(batch_size),
+                  flops_per_step=flops.train_flops_per_step(batch_size), peak_flops=detect_peak_flops())
+    print(json.dumps(fields))
+    return fields
 
 
 def load_encoder_params(checkpoint_dir: str, target: nn.Module) -> nn.Module:

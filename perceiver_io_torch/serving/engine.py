@@ -811,7 +811,10 @@ class ServingEngine:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=stream):
+            # thread-local: another thread's CUDA call (a fleet built
+            # beside this engine, its weights copied to the host) leaves
+            # the capture valid; this thread's own unsafe calls still fail it
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
                 out, _ = self._decode_method(self._tok_in, self._cache)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the decode step failed: {e}") from e

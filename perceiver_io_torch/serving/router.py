@@ -28,7 +28,11 @@ the rolling restart, versioned deploy and rollback, and autoscaling.
     in a worker process of its own behind ``serving/transport.py``'s framed
     RPC (``EngineClient``), with its own CUDA context, stream and copy of
     the weights; ``transport`` holds the clients' options (``rpc_timeout_s``,
-    ``init_timeout_s``, ``retry``, ``num_threads``). Dispatch, breakers,
+    ``init_timeout_s``, ``retry``, ``num_threads``). The fleet keeps one
+    spare worker process started ahead (from its build on): a respawn, a
+    recycle, a flip or a scale-up takes it, its interpreter and imports
+    done (the largest part of a worker's start), and starts the next spare
+    in its place. Dispatch, breakers,
     failover and journals work as in-process. A worker whose process dies
     (``kill -9``, an out-of-memory kill, or its exit after a CUDA error)
     surfaces ``WorkerDiedError``, and on a journaled fleet the supervisor
@@ -139,7 +143,7 @@ import time
 import uuid
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -398,6 +402,8 @@ class ServingRouter:
         self._journal_segment_max = 4096
         self._replica_mode = replica_mode
         self._transport_cfg = dict(transport or {})
+        # process mode: the spare worker (process, socket), started ahead
+        self._spare: Optional[Tuple[object, object]] = None
         # the last transport_stats() of each worker client the supervisor
         # replaced: the fleet's transport counters stay lifetime totals
         self.retired_transport: List[Dict] = []
@@ -472,12 +478,15 @@ class ServingRouter:
         turn (the first start builds the serving kernels, so that no two
         workers run one nvcc), then each initialised on a thread of its own,
         so that one worker loads and captures while the next takes its
-        recipe. On a failure the clients built are closed (a failed client
-        kills its worker) and the error raised."""
+        recipe; the fleet's spare worker starts beside them. On a failure
+        the clients built are closed (a failed client kills its worker), the
+        spare ended and the error raised."""
         if self._replica_mode != "process":
             return [self._make_engine(i, path) for i, path in enumerate(journal_paths)]
         recipe = self._recipe(self._primary_version)
-        workers = [spawn_worker(self.model.device) for _ in journal_paths]
+        # the spare starts with the replicas' workers, beside their inits
+        workers = [spawn_worker(self.model.device) for _ in range(len(journal_paths) + 1)]
+        self._spare = workers.pop()
         built: List[object] = [None] * len(journal_paths)
 
         def make(i):
@@ -496,6 +505,7 @@ class ServingRouter:
             for e in built:
                 if isinstance(e, EngineClient):
                     e.close()
+            self._end_spare()
             raise errors[0]
         return built
 
@@ -510,6 +520,8 @@ class ServingRouter:
         version = self._primary_version if version is None else version
         metrics_jsonl = self._replica_metrics_jsonl.format(i=rid) if self._replica_metrics_jsonl else None
         if self._replica_mode == "process":
+            if _worker is None:
+                _worker = self._take_spare()
             return EngineClient(self.model, replica_id=rid, metrics_jsonl=metrics_jsonl, journal=journal_path,
                                 on_retry=self._note_rpc_retry, _worker=_worker,
                                 _recipe=self._recipe(version) if _recipe is None else _recipe,
@@ -1797,6 +1809,29 @@ class ServingRouter:
         self._maybe_flush_preempted(has_work)
         return has_work
 
+    def _take_spare(self):
+        """The spare worker (process, socket), a new spare started in its
+        place; a worker started now if the spare died waiting."""
+        proc, sock = self._spare
+        self._spare = spawn_worker(self.model.device)
+        if proc.poll() is None:
+            return proc, sock
+        sock.close()
+        return spawn_worker(self.model.device)
+
+    def _end_spare(self) -> None:
+        """Close the spare's socket (its worker reads EOF and exits) and reap it."""
+        if self._spare is None:
+            return
+        proc, sock = self._spare
+        self._spare = None
+        sock.close()
+        try:
+            proc.wait(timeout=30)
+        except Exception:  # noqa: BLE001 — then it is killed
+            proc.kill()
+            proc.wait()
+
     def _tick_replicas(self) -> None:
         """``step()``'s work inside the ``router.tick`` span."""
         if self._deadlines_seen:
@@ -1983,6 +2018,7 @@ class ServingRouter:
         self._preempt_handler = None
         for r in self.replicas:
             r.engine.close()
+        self._end_spare()
         if self._router_journal is not None:
             try:
                 self._router_journal.close()

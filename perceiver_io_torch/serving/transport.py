@@ -42,8 +42,9 @@ Reliability contract:
     ``transport.recv.timeout`` reads one reply as timed out without
     consuming it, ``transport.worker.kill`` SIGKILLs the worker,
     ``transport.worker.hang`` SIGSTOPs it, each scoped to a replica by
-    ``slot``. The port's own ``transport.worker.device_fault`` fires inside
-    the worker (see ``serving/worker.py``).
+    ``slot``. The port's own ``transport.worker.device_fault`` is counted
+    here too, at the replica's ``step_dispatch``, whose payload then asks
+    the worker for a device-side assert (see ``serving/worker.py``).
 
 Mirror handles: ``EngineClient.submit`` returns a real ``ServedRequest``
 whose state (status, output_ids, admitted_at, ...) is refreshed from the
@@ -278,7 +279,8 @@ class EngineClient:
     (``model_recipe``, or ``_recipe`` when the caller pickled it for several
     workers), the fleet's engine options, the replica's journal
     directory and metrics stream, the numerics flags and the thread count
-    (``num_threads``, default the client's).
+    (``num_threads``, default the client's). A worker on the card runs each
+    admission path once before it replies to ``init`` (``worker.warm_up``).
     The worker serves with ``weight_dtype`` applied to its own copy of the
     weights; the client's model is never handed to an engine.
 
@@ -325,6 +327,7 @@ class EngineClient:
         self.bytes_sent = 0
         self.bytes_recv = 0
         self.rpc_ms: deque = deque(maxlen=4096)  # the last 4096 RPCs' ms
+        self.rpc_ops: deque = deque(maxlen=4096)  # their ops, in the same order
 
         self._proc, self._sock = _worker if _worker is not None else spawn_worker(model.device)
         try:
@@ -350,10 +353,12 @@ class EngineClient:
         # where the worker's start went, in seconds: its interpreter and
         # imports, the recipe's wait and transfer (from the later of the
         # worker's readiness and this client's send), the model's build and
-        # load, the engine's build and capture
+        # load, the engine's build and capture, the warm-up of its paths
+        # (on the card: worker.warm_up)
         self.startup = {"interpreter_s": info["ready_at"] - self._proc.spawned_at,
                         "recipe_s": info["init_at"] - max(info["ready_at"], sent_at),
-                        "model_s": info["model_at"] - info["init_at"], "engine_s": info["engine_at"] - info["model_at"]}
+                        "model_s": info["model_at"] - info["init_at"], "engine_s": info["engine_at"] - info["model_at"],
+                        "warm_up_s": info["warm_at"] - info["engine_at"], "warm_up_requests": info["warm_requests"]}
         if journal is not None:
             self.journal = _ClientJournal(self)
 
@@ -474,6 +479,7 @@ class EngineClient:
             self._kill()
             raise TransportError(f"replica {self._rid}: channel out of step ({e}); worker killed") from e
         self.rpc_ms.append((time.perf_counter() - t0) * 1e3)
+        self.rpc_ops.append(op)
         result = msg.get("value")
         if msg["ok"] and _pre_apply is not None:
             result = _pre_apply(result)
@@ -560,7 +566,8 @@ class EngineClient:
         }, _pre_apply=register)
 
     def step_dispatch(self) -> bool:
-        return self._rpc("step_dispatch", {})
+        fault = faults.fire_transport_worker_device_fault(self._rid) is not None
+        return self._rpc("step_dispatch", {"device_fault": fault})
 
     def step_harvest(self) -> bool:
         return self._rpc("step_harvest", {})

@@ -34,17 +34,28 @@ Guarantees on this side:
     and then exits; the client's next RPC finds the process gone
     (``WorkerDiedError``) and the router respawns it through its journal
     (ROADMAP C15).
-  * The port's fault point ``transport.worker.device_fault`` fires here, at
-    this replica's N-th ``step_dispatch`` (``slot`` = the replica id sent in
-    ``init``, armed through ``PERCEIVER_IO_TORCH_FAULT``, which the worker
-    inherits): it gathers at an out-of-bounds index on the engine's device,
-    a real device-side assert on the card (on the CPU the same gather raises
-    ``IndexError`` at once, a plain op error).
+  * Warm before serving: on the card, ``init`` runs every admission path
+    and a decode step once on a throwaway eager engine of one slot with the
+    fleet's other options (``warm_up``) before it replies, so the work a
+    fresh process does lazily on its first use of each path (kernel modules
+    loaded at their first launch, library handles) is part of the init,
+    which has minutes, and not of the first ticks' RPCs, whose timeout is
+    seconds. The warm-up hands its memory back to the card
+    (``empty_cache``), and the peak that ``device_stats`` reports leaves it
+    out: a warmed worker holds and reports the memory an unwarmed one
+    would.
+  * The port's fault point ``transport.worker.device_fault`` is counted by
+    the client, at this replica's step_dispatch, and made here: the
+    dispatch's payload asks for it, and the worker gathers at an
+    out-of-bounds index on the engine's device, a real device-side assert
+    on the card (on the CPU the same gather raises ``IndexError`` at once,
+    a plain op error).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import pickle
 import socket
@@ -57,7 +68,6 @@ import torch
 import perceiver_io_torch.ops.decode_kernel as dk
 import perceiver_io_torch.ops.paged_decode_kernel as pk
 import perceiver_io_torch.ops.ragged_paged_kernel as rk
-from perceiver_io_torch.reliability import faults
 from perceiver_io_torch.serving.transport import FrameError, encode_frame, recv_frame
 
 _KERNELS = {"B2": dk, "B3": pk, "B4": rk}
@@ -111,10 +121,45 @@ def device_side_assert(device: torch.device) -> None:
     x[torch.tensor([1 << 20], device=device)].sum().item()
 
 
+def warm_up(model, engine_kwargs: Dict) -> int:
+    """Serve one request at each prompt length that picks a different
+    admission path or prefill bucket (``max_latents - 1``: the bucket
+    prefill; each bucket's full length: the split path of a paged engine,
+    the bucket prefill of a dense one) and a sampled one, two tokens each,
+    on an eager engine of one slot (its pool one window: the default
+    ``num_kv_pages`` of one slot, no queue bound) built with the other
+    options of ``engine_kwargs`` over ``model``, then close it and, on the
+    card, hand its memory back (``empty_cache``). It shares nothing with
+    the replica's engine but the model (no journal, no metrics stream, no
+    telemetry), so it changes no served token. Returns the requests it
+    served to completion."""
+    from perceiver_io_torch.generation.generate import GenerationConfig
+    from perceiver_io_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, **{**engine_kwargs, "num_slots": 1, "num_kv_pages": None, "max_queue_depth": None,
+                                     "max_prefill_slots": None, "cuda_graph": False, "telemetry": False})
+    try:
+        lengths = sorted({max(model.max_latents - 1, 1), *engine.prefill_buckets})
+        greedy = GenerationConfig(max_new_tokens=2)
+        sampled = GenerationConfig(max_new_tokens=2, do_sample=True, temperature=0.8, top_k=50)
+        handles = [engine.submit([1] * n, config=greedy) for n in lengths]
+        handles.append(engine.submit([1] * lengths[0], config=sampled, seed=1))
+        engine.run_until_drained()
+        served = sum(h.ok for h in handles)
+    finally:
+        engine.close()
+    del engine, handles
+    gc.collect()  # the engine's cycles hold its pool until collected
+    if model.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return served
+
+
 class _Worker:
     def __init__(self):
         self.engine = None
         self.replica_id: Optional[int] = None
+        self.build_peak = 0  # on the card: the peak allocation of the model's and the engine's build
         self.ready_at = time.perf_counter()  # imports done, serving
 
     # ------------------------------------------------------------------ ops
@@ -142,14 +187,24 @@ class _Worker:
         model_at = time.perf_counter()
         self.engine = ServingEngine(model, metrics_jsonl=p["metrics_jsonl"], journal=p["journal"], telemetry=False,
                                     obs_ns=p["obs_ns"], **p["engine_kwargs"])
+        engine_at = time.perf_counter()
+        warmed = 0
+        if device.type == "cuda":
+            # after the replica's engine, which may take the model over
+            # (served weights); the peak statistic restarts after it, and
+            # device_stats reports the build's peak beside it
+            self.build_peak = torch.cuda.max_memory_allocated(device)
+            warmed = warm_up(model, p["engine_kwargs"])
+            torch.cuda.reset_peak_memory_stats(device)
         # the launch counts a reply carries start at the engine's first tick
         for m in _KERNELS.values():
             m.launches = 0
         # perf_counter stamps (a clock the host's processes share): imports
         # done, the init op received and unpickled, the model built and
-        # loaded, the engine built (its graph captured)
+        # loaded, the engine built (its graph captured), the warm-up done
         return {"journaled": self.engine.journal is not None, "pid": os.getpid(), "ready_at": self.ready_at,
-                "init_at": init_at, "model_at": model_at, "engine_at": time.perf_counter()}
+                "init_at": init_at, "model_at": model_at, "engine_at": engine_at, "warm_at": time.perf_counter(),
+                "warm_requests": warmed}
 
     def op_submit(self, p):
         handle = self.engine.submit(p["prompt"], config=p["config"], seed=p["seed"], deadline_s=p["deadline_s"],
@@ -158,7 +213,7 @@ class _Worker:
         return {"state": _full_state(handle)}
 
     def op_step_dispatch(self, p):
-        if faults.fire_transport_worker_device_fault(self.replica_id) is not None:
+        if p["device_fault"]:  # transport.worker.device_fault, counted by the client
             device_side_assert(self.engine.device)
         return bool(self.engine.step_dispatch())
 
@@ -203,9 +258,12 @@ class _Worker:
         device = self.engine.device
         probe = torch.arange(8, device=device, dtype=torch.float32).sum().item()
         on_card = device.type == "cuda"
+        # the peak over the build and the serving since; the warm-up's engine is not in it
         return {"pid": os.getpid(), "device": str(device), "probe": probe,
                 "memory_allocated": torch.cuda.memory_allocated(device) if on_card else None,
-                "max_memory_allocated": torch.cuda.max_memory_allocated(device) if on_card else None}
+                "memory_reserved": torch.cuda.memory_reserved(device) if on_card else None,
+                "max_memory_allocated": max(self.build_peak, torch.cuda.max_memory_allocated(device))
+                if on_card else None}
 
     def op_close(self, p):
         if self.engine is not None:

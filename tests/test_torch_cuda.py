@@ -1372,6 +1372,71 @@ def test_process_router_on_the_card_matches_in_process_and_respawns(card, tmp_pa
             router.close()
 
 
+def test_worker_warm_up_leaves_the_memory_of_an_unwarmed_worker(card):
+    """A worker's init on the card (``_Worker.op_init``, its warm-up on a
+    throwaway engine of one slot included) against the same build without
+    the warm-up, both in this process: the memory the init leaves
+    allocated and the peak the worker reports (``device_stats``) match the
+    unwarmed build's to within one slot's pool, and the memory it leaves
+    reserved exceeds the unwarmed build's by less than that pool (the
+    warm-up's blocks went back to the card). A window of 16,384 tokens at
+    512 channels: a slot's cross-attention cache (64 MiB in float32)
+    outweighs the per-stream workspaces that a first eager pass
+    allocates."""
+    import gc
+    import pickle
+
+    from perceiver_io_torch.serving.transport import model_recipe
+    from perceiver_io_torch.serving.worker import _Worker
+
+    cfg = CausalSequenceModelConfig(vocab_size=64, max_seq_len=16384, max_latents=64, num_channels=512, num_heads=8,
+                                    num_self_attention_layers=2, abs_pos_emb=False, output_norm=True,
+                                    num_self_attention_rotary_layers=-1, init_scale=0.5)
+    model = CausalSequenceModel(cfg, device=card, seed=4)
+    kw = dict(num_slots=4, kv_page_size=128)
+    recipe = model_recipe(model)
+    one_slot = ServingEngine(model, num_slots=1, kv_page_size=128, cuda_graph=False)
+    pool = sum(t.numel() * t.element_size() for t in one_slot._cache_tensors())
+    one_slot.close()
+    del one_slot
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize(card)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(card)
+        return torch.cuda.memory_allocated(card), torch.cuda.memory_reserved(card)
+
+    # unwarmed: the worker's build (the model from its recipe, the engine) alone
+    base, base_reserved = settle()
+    built = CausalSequenceModel(cfg, device=card, dtype=model.dtype, param_dtype=model.param_dtype)
+    built.load_state_dict(pickle.loads(recipe)["state_dict"])
+    engine = ServingEngine(built, **kw)
+    torch.cuda.synchronize(card)
+    held_u, peak_u = torch.cuda.memory_allocated(card) - base, torch.cuda.max_memory_allocated(card) - base
+    reserved_u = torch.cuda.memory_reserved(card) - base_reserved
+    engine.close()
+    del engine, built
+    # warmed: the worker's own init
+    base, base_reserved = settle()
+    worker = _Worker()
+    info = worker.op_init({"model": recipe, "engine_kwargs": kw, "metrics_jsonl": None, "journal": None,
+                           "numerics": {"default_dtype": torch.get_default_dtype(),
+                                        "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
+                                        "cudnn_tf32": torch.backends.cudnn.allow_tf32},
+                           "num_threads": torch.get_num_threads(), "replica_id": 0, "obs_ns": "serving.r0"})
+    try:
+        stats = worker.op_device_stats(None)
+        assert info["warm_requests"] == len({cfg.max_latents - 1, *worker.engine.prefill_buckets}) + 1
+        held, peak = stats["memory_allocated"] - base, stats["max_memory_allocated"] - base
+        assert abs(held - held_u) <= pool, (held, held_u, pool)
+        assert abs(peak - peak_u) <= pool, (peak, peak_u, pool)
+        reserved = stats["memory_reserved"] - base_reserved
+        assert reserved - reserved_u < pool, (reserved, reserved_u, held, held_u, pool)
+    finally:
+        worker.op_close(None)
+
+
 def test_fleet_ops_deploy_flip_and_rolling_restart_on_the_card(card, tmp_path):
     """The fleet operations over two graph replicas on the card: a partial
     deploy flips replica 1 to a second model's weights by building it a

@@ -30,7 +30,7 @@ from perceiver_io_torch.serving import (BREAKER_CLOSED, EngineClient, FrameError
                                         TransportError, WorkerDiedError, WorkerOpError, load_metrics_jsonl,
                                         read_journal)
 from perceiver_io_torch.serving import transport as port_transport
-from perceiver_io_torch.serving.worker import is_device_error
+from perceiver_io_torch.serving.worker import is_device_error, warm_up
 from perceiver_io_tpu.reliability import FAULTS as JAX_FAULTS
 from perceiver_io_tpu.reliability import armed as jax_armed
 from perceiver_io_tpu.reliability.retry import RetryError as JaxRetryError
@@ -491,11 +491,11 @@ def test_sampled_requests_match_the_in_process_fleet(pair, tmp_path):
 
 
 # ---------------------------------------------------------- remote errors
-def test_remote_errors_come_back_as_worker_op_errors(pair, monkeypatch):
+def test_remote_errors_come_back_as_worker_op_errors(pair):
     """An op that raises in the worker comes back as ``WorkerOpError`` with
     the remote type's name and traceback, and the channel stays healthy. In
-    a router, the port's ``transport.worker.device_fault`` (armed through
-    the environment the worker inherits, targeted by replica id) gathers
+    a router, the port's ``transport.worker.device_fault`` (armed in this
+    process and counted by the client, targeted by replica id) gathers
     out of bounds in worker 1 at its second dispatch: on the CPU an
     ``IndexError``, a breaker strike, and the victims fail over with the
     uninterrupted tokens while worker 0 serves on."""
@@ -518,14 +518,12 @@ def test_remote_errors_come_back_as_worker_op_errors(pair, monkeypatch):
     assert not client.alive
 
     expected = _reference(tm, PROMPTS, [6, 6, 6])
-    monkeypatch.setenv("PERCEIVER_IO_TORCH_FAULT", "transport.worker.device_fault:slot=1,after=1")
     router = ServingRouter(tm, num_replicas=2, num_slots=1, breaker_cooldown_ticks=2, replica_mode="process",
                            transport=T)
-    monkeypatch.delenv("PERCEIVER_IO_TORCH_FAULT")
-    FAULTS.reset()
     try:
         handles = [router.submit(p, max_new_tokens=6) for p in PROMPTS]
-        router.run_until_drained(max_steps=300)
+        with armed("transport.worker.device_fault", slot=1, after=1):
+            router.run_until_drained(max_steps=300)
         snap = router.snapshot()
     finally:
         router.close()
@@ -552,3 +550,57 @@ def test_spawn_worker_needs_the_models_device():
     a CPU worker for a card model (and skip the kernels' one build)."""
     with pytest.raises(TypeError, match="device"):
         port_transport.spawn_worker()
+
+
+@pytest.mark.parametrize("options", [dict(num_slots=2), dict(num_slots=2, kv_page_size=4),
+                                     dict(num_slots=2, kv_page_size=4, kv_quant="int4")],
+                         ids=["dense", "paged", "paged_int4"])
+def test_worker_warm_up_serves_each_admission_path_and_leaves_the_model(pair, options):
+    """``worker.warm_up`` serves one request a bucket length, one below the
+    latents and one sampled, on a throwaway eager engine of one slot, and
+    leaves the model's weights as they were; a CPU worker skips it (its
+    start records 0 warm-up requests) and serves as before."""
+    tm = pair[2]
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    buckets = ServingEngine(tm, **options).prefill_buckets
+    assert warm_up(tm, options) == len({tm.max_latents - 1, *buckets}) + 1
+    assert all(torch.equal(before[k], v) for k, v in tm.state_dict().items())
+    client = EngineClient(tm, replica_id=0, **options, **T)
+    try:
+        assert client.startup["warm_up_requests"] == 0 and client.startup["warm_up_s"] >= 0
+        handle = client.submit(_prompt(6), max_new_tokens=2)
+        while not handle.done:
+            client.step_dispatch()
+            client.step_harvest()
+        assert handle.ok and [op for op in client.rpc_ops][:2] == ["init", "submit"]
+    finally:
+        client.close()
+
+
+def test_spare_worker_takes_the_respawn(pair, tmp_path):
+    """A process fleet keeps one started worker ahead (an in-process one
+    none); a SIGKILLed replica's respawn through its journal takes it (the
+    respawned pid is the spare's), a new spare starts in its place, the
+    tokens are the uninterrupted ones, and close() ends the spare."""
+    tm = pair[2]
+    expected = _reference(tm, PROMPTS, [8, 8, 8])
+    in_process = ServingRouter(tm, num_replicas=1, num_slots=1)
+    assert in_process._spare is None
+    in_process.close()
+    router = ServingRouter(tm, num_replicas=2, num_slots=2, replica_mode="process", journal=str(tmp_path / "r{i}"),
+                           transport=T)
+    try:
+        spare, _ = router._spare
+        assert spare.poll() is None and spare.pid not in [r.engine.pid for r in router.replicas]
+        handles = [router.submit(p, max_new_tokens=8) for p in PROMPTS]
+        router.step()
+        os.kill(router.replicas[1].engine.pid, signal.SIGKILL)
+        router.run_until_drained(max_steps=300)
+        assert router.replicas[1].engine.pid == spare.pid
+        assert router.snapshot()["transport"]["worker_respawns"] == 1
+        assert [h.result().tolist() for h in handles] == expected and all(h.ok for h in handles)
+        refill, _ = router._spare
+        assert refill.pid != spare.pid and refill.poll() is None
+    finally:
+        router.close()
+    assert router._spare is None and refill.poll() is not None
